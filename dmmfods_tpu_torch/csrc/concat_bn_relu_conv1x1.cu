@@ -33,21 +33,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
+
 namespace {
 
 constexpr int kBM = 64;       // output rows per block
 constexpr int kBN = 64;       // output channels per block
 constexpr int kBK = 32;       // K chunk staged per step
 constexpr int kThreads = 256; // 16 x 16 threads, 4x4 outputs each
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -9,9 +9,20 @@ the module names are the JAX model's; the module names are also the
 reference torch network's, so ``dmmfods_tpu.models.torch_port`` maps this
 model's ``state_dict`` onto the JAX variables key for key.
 
-Only the math is ported. The JAX model's TPU lowering options (rows-as-batch
-forms, dense-block buffers, strip kernels, the phase-space head rewrite)
-have no counterpart here: each one computes the plain form below.
+Only the math is ported, plus the kernels of the eval path. The JAX
+model's TPU lowering options (rows-as-batch forms, dense-block buffers, the
+XLA forms of the phase-space head) have no counterpart here: each one
+computes the plain form below. In eval mode three modules hand their work to
+a hand-written CUDA kernel (the plain version on a CPU tensor):
+
+* ``ConcatFuse``: K1, :func:`..ops.fused.concat_bn_relu_conv1x1`, always;
+* ``DenseBlock``: K2, :func:`..ops.dense_block_strip.dense_block_strip`, at
+  batch 1 on planes of at least ``STRIP_MIN_PIXELS`` pixels;
+* ``Head``: K3, :func:`..ops.phase_head.phase_head`, at batch 1 on output
+  planes of more than ``HEAD_KERNEL_MIN_PIXELS`` pixels.
+
+At the 128x192 working resolution only K1 engages; at 1280x1920 batch 1 the
+blocks 1 and 2 of both streams and the head do too.
 
 Layout: :meth:`DenseUNetLidar.forward` takes and returns NHWC tensors, like
 the JAX model. Inside, tensors are NCHW in shape and ``channels_last`` in
@@ -36,9 +47,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused import concat_bn_relu_conv1x1
+from ..ops.dense_block import fold_block_params
+from ..ops.dense_block_strip import dense_block_strip
+from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
+from ..ops.phase_head import phase_head
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The kernels' gates, read at each call. A dense block of a batch-1 plane of
+# at least this many pixels runs as K2 (``ModelSpec.rows_min_pixels`` of the
+# JAX model: blocks 1 and 2 at 1280x1920, not block 3 at 80x120).
+STRIP_MIN_PIXELS = 16384
+# The head of a batch-1 output plane of more than this many pixels runs as K3
+# (``dense_unet_lidar.py`` ``Head``'s "big" plane of the JAX model).
+HEAD_KERNEL_MIN_PIXELS = 98304
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +215,20 @@ class DenseBlock(nn.Module):
                 drop_rate))
 
     def forward(self, x):
+        if self._strip_eligible(x):
+            out = dense_block_strip(x.permute(0, 2, 3, 1).contiguous(),
+                                    fold_block_params(self))
+            return out.permute(0, 3, 1, 2)
         features = x
         for layer in self.children():
             features = torch.cat([features, layer(features)], dim=1)
         return features
+
+    def _strip_eligible(self, x) -> bool:
+        """Eval, batch 1, a big plane and no dropout: the whole block as K2."""
+        return (not self.training and x.shape[0] == 1
+                and x.shape[2] * x.shape[3] >= STRIP_MIN_PIXELS
+                and all(layer.drop_rate == 0 for layer in self.children()))
 
 
 class Transition(nn.Module):
@@ -355,7 +387,11 @@ class Decoder(nn.Module):
 
 class Head(nn.Module):
     """Heat-map logits: nearest 2x upsample, concat with the raw network
-    input, then BN-ReLU-Conv3x3-BN-ReLU-Conv5x5 (``dec_out_to_heat_maps``)."""
+    input, then BN-ReLU-Conv3x3-BN-ReLU-Conv5x5 (``dec_out_to_heat_maps``).
+
+    Eval at batch 1 on a big plane runs the whole head as K3
+    (:func:`..ops.phase_head.phase_head`) on NHWC views, so the upsample,
+    the concat and the mid tensor never exist in memory."""
 
     def __init__(self, up_channels, raw_channels, mid_features, num_classes):
         super().__init__()
@@ -366,9 +402,23 @@ class Head(nn.Module):
         self.refine1 = nn.Conv2d(mid_features, num_classes, 5, padding=2, bias=False)
 
     def forward(self, x_lo, raw):
+        if self._kernel_eligible(x_lo, raw):
+            n0, n1 = self.norm0, self.norm1
+            g0, b0 = fold_bn(n0.weight, n0.bias, n0.running_mean, n0.running_var, n0.eps)
+            g1, b1 = fold_bn(n1.weight, n1.bias, n1.running_mean, n1.running_var, n1.eps)
+            out = phase_head(x_lo.permute(0, 2, 3, 1).contiguous(),
+                             raw.permute(0, 2, 3, 1).contiguous(),
+                             g0=g0, b0=b0, w0=self.refine0.weight,
+                             g1=g1, b1=b1, w1=self.refine1.weight)
+            return out.permute(0, 3, 1, 2)
         x = torch.cat([F.interpolate(x_lo, scale_factor=2, mode="nearest"), raw], dim=1)
         x = _conv(_bn_relu(x, self.norm0), self.refine0)
         return _conv(_bn_relu(x, self.norm1), self.refine1)
+
+    def _kernel_eligible(self, x_lo, raw) -> bool:
+        h, w = raw.shape[-2:]
+        return (not self.training and raw.shape[0] == 1 and h * w > HEAD_KERNEL_MIN_PIXELS
+                and (h, w) == (2 * x_lo.shape[-2], 2 * x_lo.shape[-1]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 The kernels live as CUDA C++ sources under ``dmmfods_tpu_torch/csrc/``. At
-first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
+first use each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into
+an object file, all of them at once in parallel, and the objects are linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.
 The library goes to ``dmmfods_tpu_torch/_build/<hash>/``, keyed by a hash of
 the sources and the compiler flags, so an edit to a source rebuilds and an
 unchanged tree reuses the last build. Nothing here runs at import time.
@@ -26,10 +28,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("concat_bn_relu_conv1x1.cu",)
+SOURCES = ("concat_bn_relu_conv1x1.cu", "dense_block_strip.cu", "phase_head.cu")
+HEADERS = ("dtype.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libdmmfods_kernels.so"
 
@@ -58,7 +61,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -69,24 +72,35 @@ def library_path() -> Path:
     return BUILD_DIR / source_hash() / LIB_NAME
 
 
+def _run(cmds):
+    """Run the commands all at once; raise with the output of the first that
+    fails. Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    return "".join(outputs)
+
+
 def _compile(target: Path) -> None:
     global build_seconds, build_log
     target.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent process sees
-    # either no library or a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objects = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)]
+                    for src, obj in zip(SOURCES, objects)])
+        # link to a private name, then rename: a concurrent process sees
+        # either no library or a whole one
+        lib = str(Path(tmp) / LIB_NAME)
+        log += _run([[nvcc, "-shared", "-o", lib, *objects]])
+        os.replace(lib, target)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
     (target.parent / "nvcc.log").write_text(build_log)
-    os.replace(tmp, target)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -94,6 +108,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.dmm_concat_bn_relu_conv1x1
     fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmm_dense_block_strip
+    fn.argtypes = [p] * 8 + [ctypes.c_int] * 8 + [p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmm_phase_head
+    fn.argtypes = [p] * 9 + [ctypes.c_int] * 8 + [p]
     fn.restype = ctypes.c_int
 
 

@@ -34,6 +34,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     imported = set(proc.stdout.split())
-    for name in ("config", "ops.fused", "ops._build", "models.dense_unet_lidar",
+    for name in ("config", "ops.fused", "ops._build", "ops.dense_block",
+                 "ops.dense_block_strip", "ops.phase_head", "models.dense_unet_lidar",
                  "models.weights", "serving"):
         assert "dmmfods_tpu_torch." + name in imported, proc.stdout

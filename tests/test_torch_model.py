@@ -276,3 +276,62 @@ def test_densenet121_logits_match_jax_at_128x192(tmp_path):
     with torch.no_grad():
         got = port.eval()(torch.from_numpy(rgb), torch.from_numpy(lidar)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_config3_logits_match_jax_through_k2_and_k3(tmp_path, monkeypatch):
+    """The tiny config-3 model (mid fusion before block 3) at batch 1, with
+    every gate lowered so that both sides take their kernels' paths: JAX
+    runs its carry strip kernel on blocks 1 and 2 of both streams and its
+    strip head, in interpret mode; the port runs K2's and K3's wrappers
+    (their plain versions on the CPU). Same atol/rtol 1e-4 as above."""
+    h, w = 64, 128
+    jcfg, pcfg = _tiny_configs(tmp_path, cbn=3, s2=1)
+    jcfg.tpu.dense_block_strip = "carry"
+    jcfg.tpu.rows_min_pixels = 64
+    jcfg.tpu.phase_head_impl = "strip"
+    jmodule = jm.DenseUNetLidar(jm.ModelSpec.from_config(jcfg))
+    rng = np.random.default_rng(13)
+    rgb = rng.uniform(0, 1, (1, h, w, 3)).astype(np.float32)
+    lidar = rng.uniform(0, 1, (1, h, w, 1)).astype(np.float32)
+    variables = _randomize(_jax_init(jmodule, rgb, lidar, False), 13)
+    want = np.asarray(jax.jit(lambda v: jmodule.apply(v, rgb, lidar, False))(variables))
+
+    pspec = pm.ModelSpec.from_config(pcfg)
+    port = pm.DenseUNetLidar(pspec)
+    port.load_state_dict(state_dict_from_jax(variables, pspec), strict=True)
+    calls = {"k2": [], "k3": []}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name].append(tuple(args[0].shape))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(pm, "dense_block_strip", spy("k2", pm.dense_block_strip))
+    monkeypatch.setattr(pm, "phase_head", spy("k3", pm.phase_head))
+    monkeypatch.setattr(pm, "STRIP_MIN_PIXELS", 64)
+    monkeypatch.setattr(pm, "HEAD_KERNEL_MIN_PIXELS", 64)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(rgb), torch.from_numpy(lidar)).numpy()
+    # blocks 1 (16x32) and 2 (8x16) of each stream; block 3 (4x8) is below the gate
+    assert sorted(calls["k2"]) == [(1, 8, 16, 16)] * 2 + [(1, 16, 32, 16)] * 2
+    assert calls["k3"] == [(1, h // 2, w // 2, 32)]
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_config3_parameter_count_matches_jax(tmp_path):
+    """Full-width DenseNet-121 with mid fusion before block 3: the port's
+    parameter count is JAX's (shapes only, from ``jax.eval_shape``)."""
+    jcfg = jax_get_config(str(tmp_path))
+    jcfg.model.concat_before_block_num = 3
+    jmodule = jm.DenseUNetLidar(jm.ModelSpec.from_config(jcfg))
+    rgb = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    lidar = jnp.zeros((1, 64, 96, 1), jnp.float32)
+    shapes = jax.eval_shape(lambda: jmodule.init(jax.random.PRNGKey(0), rgb, lidar, False))
+    want = sum(math.prod(v.shape) for _, v in _leaves(shapes["params"]))
+    pcfg = get_config(str(tmp_path))
+    pcfg.model.concat_before_block_num = 3
+    bundle = pm.densenet121_u_lidar(config=pcfg)
+    assert bundle.spec.fusion == "mid" and bundle.spec.concat_before_block_num == 3
+    assert bundle.num_params == want == 23_560_136
