@@ -19,21 +19,37 @@ exit code:
 4. K2 (the dense block) against its plain version at the 1280x1920 block
    shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12 layers) in bf16
    and at a ragged shape in f32; K3 (the head) at the 1280x1920 shape in
-   bf16 and at a ragged shape in f32.
-5. Serve at 128x192: the full-width DenseNet-121 mid-fusion model (random
-   weights from a seed) in bf16 through ``InferenceEngine``: warm-up, the
-   worker with four requests, one synchronous request, stop. Checks the heat
-   maps, that every device batch went through K1 and none through K2 or K3,
-   K1's output inside a served batch, and the served output against the
-   same weights in f32.
-6. Serve at 1280x1920 batch 1: DenseNet-121 with mid fusion before block 3
-   (BASELINE.json config 3) in bf16: warm-up, two requests through the
-   worker, one synchronous request, stop. Checks the heat maps, that every
-   device batch ran K1 once, K2 four times and K3 once, and the served
-   output against the same weights in f32.
-7. Time, by CUDA events: the engine's forward at b1/b8/b32/b256 at 128x192
-   and at b1 at 1280x1920; K1 at the b256 shape, K2 at both block shapes
-   and K3 at the 1280x1920 shape, each against its plain version in turns.
+   bf16 and at a ragged shape in f32; K4 (the whole-block kernel) at the
+   four DenseNet-121 block shapes of 128x192 in bf16, at each batch of the
+   opt-in path that runs the block as K4 (``K4_PATH_BATCHES``) and at b256,
+   and at a ragged and a small-plane shape in f32; K6 (the fused
+   stem + pool0) at 1280x1920 with 3 and 1 channels and at 128x192 in
+   bf16, and at a ragged shape in f32.
+5. Serve at 128x192 with the default config: the full-width DenseNet-121
+   mid-fusion model (random weights from a seed) in bf16 through
+   ``InferenceEngine``: warm-up, the worker with four requests, one
+   synchronous request, stop. Checks the heat maps, that every device batch
+   went through K1 and none through K2, K3, K4 or K6, K1's output inside a
+   served batch, and the served output against the same weights in f32.
+6. Serve at 1280x1920 batch 1 with the default config: DenseNet-121 with
+   mid fusion before block 3 (BASELINE.json config 3) in bf16: warm-up, two
+   requests through the worker, one synchronous request, stop. Checks the
+   heat maps, that every device batch ran K1 once, K2 four times, K3 once
+   and no K4 or K6, and the served output against the same weights in f32.
+7. Serve at 128x192 with the opt-ins ``gpu.dense_block_impl = "pallas"`` and
+   ``gpu.stem_pool_strip = "on"``, buckets (1, 8, 32): one synchronous
+   request per bucket, each checked for the launches of its device batch
+   (``OPT_IN_LAUNCHES``), then the worker with three requests. Checks the
+   heat maps and the served output against the same weights in f32 on the
+   default path.
+8. Serve at 1280x1920 batch 1, config 3, with the opt-ins: K1 once, K2 four
+   times, K3 once, K6 twice and no K4 per device batch; served against f32.
+9. Time, by CUDA events: the engine's forward with the default config and
+   with the opt-ins at b1/b8/b32/b256 at 128x192 and at b1 at 1280x1920; K1
+   at the b256 shape, K2 at both block shapes, K3 at the 1280x1920 shape,
+   K4 at the four b256 block shapes and K6 at 1280x1920 with 3 channels,
+   each against its plain version in turns; K4 and K6 also against the
+   model's own plain block loop and unfused stem, the code they replace.
 
 Its last two lines are a JSON summary of the kernels and the run's result.
 """
@@ -66,8 +82,26 @@ BOUND_SERVED_VS_F32 = 2e-2
 # growth 32, K 128), K3 (hh, hw, c_up, raw channels, c_mid, classes).
 K2_BLOCKS = {"block1": (320, 480, 64, 6), "block2": (160, 240, 128, 12)}
 K3_FULL = (640, 960, 128, 4, 64, 3)
+# K4 per DenseNet-121 block at 128x192 (h, w, c0, layers), checked at the
+# batches the opt-in path gives each block (the kernel picks its cluster of
+# blocks per image from the batch: block 2 runs 4-block clusters at b1, b8
+# and b32, block 1 6 at b1 and b8 and 4 at b32) and at b256 (one block per
+# image), and timed at b256; K6 at 1280x1920 (h, w, channels; 64 features)
+K4_BLOCKS = {"block1": (32, 48, 64, 6), "block2": (16, 24, 128, 12),
+             "block3": (8, 12, 256, 24), "block4": (4, 6, 512, 16)}
+K4_PATH_BATCHES = {"block1": (1, 8, 32), "block2": (1, 8, 32), "block3": (8, 32),
+                   "block4": (32,)}
+K6_FULL = (FULL_HEIGHT, FULL_WIDTH, 3)
+# launches per device batch at 128x192 with both opt-ins: K4 on stream 1's
+# blocks 1-2 and stream 2's block 1, block 3 from b8 and block 4 from b32
+# (JAX's sample-group rule); K6 on both stems at b1 only
+OPT_IN_LAUNCHES = {1: dict(K1=1, K2=0, K3=0, K4=3, K6=2),
+                   8: dict(K1=1, K2=0, K3=0, K4=4, K6=0),
+                   32: dict(K1=1, K2=0, K3=0, K4=5, K6=0)}
+# K2's and K4's plain version, dense_block_strip_reference
+PLAIN_BLOCK = "cuDNN bf16 convs, BN in f32 over each concat prefix"
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
-                "phase_head_kernel")
+                "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel")
 
 
 def _card_line() -> str:
@@ -97,13 +131,14 @@ def _median_ms(fn, iters, warmup=3):
     return _median(times), times
 
 
-def _in_turns(kernel, plain, iters):
-    """Median ms of ``kernel`` and of ``plain``, timed plain, kernel, kernel,
-    plain with ``iters`` iterations each time."""
-    times = {"kernel": [], "plain": []}
-    for version in ("plain", "kernel", "kernel", "plain"):
-        times[version] += _median_ms(kernel if version == "kernel" else plain, iters)[1]
-    return _median(times["kernel"]), _median(times["plain"])
+def _in_turns(*fns, iters):
+    """Median ms of each of ``fns``, timed in turns: in order, then in
+    reverse, ``iters`` iterations each time."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        times[i] += _median_ms(fns[i], iters)[1]
+    return tuple(_median(t) for t in times)
 
 
 def _check(name, shape, out, ref):
@@ -146,11 +181,11 @@ def _k1_error(out, a, b, params):
     return (out.float() - ref).abs().max().item(), ref.abs().max().item()
 
 
-def _k2_inputs(gen, h, w, c0, layers, growth, k, dtype, device):
-    """Input and folded stacks of a random dense block. BN biases are wide
-    enough that some folded BN2 bias is positive: a pixel outside the image
-    then reads ReLU(b2) != 0 unless the kernel masks it, so a border bug
-    shows. Weights are ones the kernel's dtype holds exactly."""
+def _k2_inputs(gen, h, w, c0, layers, growth, k, dtype, device, batch=1):
+    """Input and folded stacks of a random dense block (K2, K4). BN biases
+    are wide enough that some folded BN2 bias is positive: a pixel outside
+    the image then reads ReLU(b2) != 0 unless the kernel masks it, so a
+    border bug shows. Weights are ones the kernel's dtype holds exactly."""
     import torch
 
     c_max = c0 + layers * growth
@@ -169,7 +204,7 @@ def _k2_inputs(gen, h, w, c0, layers, growth, k, dtype, device):
         w3=torch.randn(layers, 3, 3, k, growth, generator=gen) * (2 / (9 * k)) ** 0.5)
     for name in ("w1", "w3"):
         folded[name] = folded[name].to(dtype).float()
-    x = torch.randn(1, h, w, c0, generator=gen).to(device, dtype)
+    x = torch.randn(batch, h, w, c0, generator=gen).to(device, dtype)
     return x, {name: t.to(device) for name, t in folded.items()}
 
 
@@ -192,19 +227,45 @@ def _k3_inputs(gen, hh, hw, c_up, rc, c_mid, n_cls, dtype, device):
     return x_lo, raw, {name: t.to(device) for name, t in consts.items()}
 
 
-def _reset_counts():
-    from dmmfods_tpu_torch.ops import dense_block_strip, fused, phase_head
+def _k6_inputs(gen, batch, h, w, c, f, dtype, device):
+    """A random frame (values in [0, 1]) and a random stem: conv0 weights
+    exact in dtype, folded norm0 with biases of both signs, so a pool
+    padding that contributes ReLU(beta) shows."""
+    import torch
 
-    for count in (fused.K1_LAUNCHES, dense_block_strip.K2_LAUNCHES,
-                  phase_head.K3_LAUNCHES):
+    x = torch.rand(batch, h, w, c, generator=gen).to(device, dtype)
+    w7 = (torch.randn(7, 7, c, f, generator=gen) * (2 / (49 * c)) ** 0.5).to(dtype).float()
+    gamma = torch.rand(f, generator=gen) + 0.5
+    beta = torch.randn(f, generator=gen) * 0.5
+    return x, w7.to(device), gamma.to(device), beta.to(device)
+
+
+def _launch_counts():
+    from dmmfods_tpu_torch.ops import (dense_block, dense_block_strip, fused,
+                                       phase_head, stem_pool)
+
+    return {"K1": fused.K1_LAUNCHES, "K2": dense_block_strip.K2_LAUNCHES,
+            "K3": phase_head.K3_LAUNCHES, "K4": dense_block.K4_LAUNCHES,
+            "K6": stem_pool.K6_LAUNCHES}
+
+
+def _reset_counts():
+    for count in _launch_counts().values():
         count.reset()
 
 
 def _counts():
-    from dmmfods_tpu_torch.ops import dense_block_strip, fused, phase_head
+    return {name: count.value for name, count in _launch_counts().items()}
 
-    return (fused.K1_LAUNCHES.value, dense_block_strip.K2_LAUNCHES.value,
-            phase_head.K3_LAUNCHES.value)
+
+def _per_batch(counts, batches, want):
+    """Raise unless ``counts`` are ``want`` launches per device batch."""
+    expected = {name: n * batches for name, n in want.items()}
+    if counts != expected:
+        raise AssertionError(f"launches {counts} for {batches} device batches, "
+                             f"want {want} per batch")
+    print("launches per device batch: " + ", ".join(
+        f"{name} {n}" for name, n in want.items()) + f" ({batches} batches)")
 
 
 def _check_heat_maps(requests, results, h, w):
@@ -223,9 +284,13 @@ def _served_vs_f32(bundle, rgb, lidar, served, device, label):
     import numpy as np
     import torch
 
-    from dmmfods_tpu_torch.models.dense_unet_lidar import DenseUNetLidar
+    from dmmfods_tpu_torch.models.dense_unet_lidar import DenseUNetLidar, ModelSpec
 
-    ref_model = DenseUNetLidar(dataclasses.replace(bundle.spec, dtype=torch.float32))
+    # the default dispatch in f32: the opt-in kernels are held against the
+    # plain path
+    ref_model = DenseUNetLidar(dataclasses.replace(
+        bundle.spec, dtype=torch.float32, dense_block_impl=ModelSpec.dense_block_impl,
+        stem_pool_strip=ModelSpec.stem_pool_strip))
     ref_model.load_state_dict(bundle.module.state_dict())
     ref_model = ref_model.to(device, memory_format=torch.channels_last).eval()
     with torch.inference_mode():
@@ -251,6 +316,45 @@ def _serve(engine, requests, sync_request):
     return results, time.perf_counter() - t0
 
 
+def _ptxas_report(build_log):
+    """ptxas's registers and shared memory per kernel, from the build log."""
+    import re
+
+    kernel = "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((n for n in KERNEL_NAMES if n in line), "?")
+            tile = re.search(r"Li(\d+)ELi(\d+)E", line)
+            kernel = (f"{name}<{'bf16' if 'nv_bfloat16' in line else 'f32'}"
+                      + (f", {tile[1]}x{tile[2]}" if tile else "") + ">")
+        elif "registers" in line:
+            print(f"  ptxas {kernel}:", line.split(":", 1)[1].strip())
+
+
+def _serve_buckets(engine, rng, h, w, label):
+    """One synchronous request per bucket of the opt-in engine, each one
+    device batch: its launches must be ``OPT_IN_LAUNCHES``. Returns the
+    summed counts and the b8 request with its heat maps."""
+    import numpy as np
+
+    total = {name: 0 for name in OPT_IN_LAUNCHES[1]}
+    kept = None
+    for bucket, want in OPT_IN_LAUNCHES.items():
+        rgb = rng.uniform(0, 1, (bucket, h, w, 3)).astype(np.float32)
+        lidar = rng.uniform(0, 1, (bucket, h, w, 1)).astype(np.float32)
+        before = engine.device_batches
+        _reset_counts()
+        out = engine.run(rgb, lidar)
+        counts = _counts()
+        _check_heat_maps([(rgb, lidar)], [out], h, w)
+        print(f"{label} b{bucket}: ", end="")
+        _per_batch(counts, engine.device_batches - before, want)
+        total = {name: total[name] + counts[name] for name in total}
+        if bucket == 8:
+            kept = (rgb, lidar, out)
+    return total, kept
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -261,8 +365,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from dmmfods_tpu_torch.config import get_config
-    from dmmfods_tpu_torch.models.dense_unet_lidar import densenet121_u_lidar
-    from dmmfods_tpu_torch.ops import _build, dense_block_strip, fused, phase_head
+    from dmmfods_tpu_torch.models.dense_unet_lidar import (DenseBlock, Encoder, ModelSpec,
+                                                           densenet121_u_lidar)
+    from dmmfods_tpu_torch.ops import (_build, dense_block, dense_block_strip, fused,
+                                       phase_head, stem_pool)
     from dmmfods_tpu_torch.serving import InferenceEngine
 
     device = torch.device("cuda", 0)
@@ -284,17 +390,11 @@ def main() -> int:
     else:
         print(f"build: nvcc {_build.build_seconds:.2f} s for {len(_build.SOURCES)} "
               f"sources in parallel, load {load_s:.2f} s -> {_build.library_path()}")
-    kernel = "?"
-    for line in _build.build_log.splitlines():
-        if "Compiling entry function" in line:
-            name = next((n for n in KERNEL_NAMES if n in line), "?")
-            kernel = f"{name}<{'bf16' if 'nv_bfloat16' in line else 'f32'}>"
-        elif "registers" in line:
-            print(f"  ptxas {kernel}:", line.split(":", 1)[1].strip())
+    _ptxas_report(_build.build_log)
 
     # 3. K1 against its plain version ----------------------------------------
     gen = torch.Generator().manual_seed(SEED)
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0}
     cases = [(batch, 16, 24, 128, 128, 128, dt)
              for dt in (torch.bfloat16, torch.float32) for batch in (8, 256)]
     cases.append((1, 80, 120, 256, 256, 256, torch.bfloat16))   # the 1280x1920 fuse
@@ -311,7 +411,7 @@ def main() -> int:
             raise AssertionError(f"K1 disagrees with its plain version: {err} > {bound}")
         worst["K1"] = max(worst["K1"], err)
 
-    # 4. K2 and K3 against their plain versions ----------------------------
+    # 4. K2, K3, K4 and K6 against their plain versions --------------------
     k2_cases = [(name, h, w, c0, layers, 32, 128, torch.bfloat16)
                 for name, (h, w, c0, layers) in K2_BLOCKS.items()]
     k2_cases.append(("ragged", 37, 53, 24, 3, 8, 32, torch.float32))
@@ -331,13 +431,41 @@ def main() -> int:
         worst["K3"] = max(worst["K3"], _check(
             "K3", f"{name} x_lo {tuple(x_lo.shape)} raw {tuple(raw.shape)} "
             f"c_mid={shape[4]} classes={shape[5]}", out, ref))
-    del x, folded, x_lo, raw, consts, out, ref
+    k4_cases = [(f"{name} b{batch}", batch, *K4_BLOCKS[name], 32, 128, torch.bfloat16)
+                for name, batches in K4_PATH_BATCHES.items() for batch in batches + (256,)]
+    k4_cases.append(("ragged", 6, 37, 53, 24, 3, 8, 32, torch.float32))
+    k4_cases.append(("small planes", 40, 4, 6, 48, 4, 16, 64, torch.float32))
+    for name, batch, h, w, c0, layers, growth, k, dt in k4_cases:
+        x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, dt, device, batch=batch)
+        out = dense_block.dense_block(x, folded)
+        torch.cuda.synchronize()
+        ref = dense_block.dense_block_reference(x.float(), folded)
+        worst["K4"] = max(worst["K4"], _check(
+            "K4", f"{name} ({batch}, {h}, {w}, {c0}) L={layers} G={growth} K={k}",
+            out, ref))
+    k6_cases = [((1, FULL_HEIGHT, FULL_WIDTH, 3, 64), torch.bfloat16),
+                ((1, FULL_HEIGHT, FULL_WIDTH, 1, 64), torch.bfloat16),
+                ((1, HEIGHT, WIDTH, 3, 64), torch.bfloat16),
+                ((2, 37, 58, 4, 40), torch.float32)]
+    for shape, dt in k6_cases:
+        x, w7, gamma, beta = _k6_inputs(gen, *shape, dt, device)
+        out = stem_pool.stem_pool(x, w7, gamma, beta)
+        torch.cuda.synchronize()
+        ref = stem_pool.stem_pool_reference(x.float(), w7, gamma, beta)
+        worst["K6"] = max(worst["K6"], _check(
+            "K6", f"x {tuple(x.shape)} F={shape[-1]}", out, ref))
+    del x, folded, x_lo, raw, consts, w7, out, ref
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
-        cfg = get_config(host)
-        cfg3 = get_config(host)
+        cfg, cfg3, cfg_opt, cfg3_opt = (get_config(host) for _ in range(4))
+    for c in (cfg3, cfg3_opt):
+        c.model.concat_before_block_num = 3
+    for c in (cfg_opt, cfg3_opt):
+        c.gpu.dense_block_impl = "pallas"
+        c.gpu.stem_pool_strip = "on"
     rng = np.random.default_rng(SEED)
+    path_counts = []        # the counts of every main-path run below
 
     # 5. serve at 128x192 --------------------------------------------------------
     bundle = densenet121_u_lidar(config=cfg, device=device, seed=SEED)
@@ -347,7 +475,7 @@ def main() -> int:
     if spec.fusion != "mid" or spec.dtype != torch.bfloat16:
         raise AssertionError(f"want mid fusion in bf16, got {spec.fusion} {spec.dtype}")
     print(f"model: densenet121_u_lidar, {bundle.num_params} params, "
-          f"{spec.fusion} fusion, {spec.dtype}, {HEIGHT}x{WIDTH}")
+          f"{spec.fusion} fusion, {spec.dtype}, {HEIGHT}x{WIDTH}, default config")
     buckets = (1, 8, 32)
     engine = InferenceEngine(bundle, buckets=buckets)
 
@@ -361,7 +489,7 @@ def main() -> int:
     _reset_counts()
     warm_batches = len(buckets)                 # warm-up runs each bucket once
     results, serve_s = _serve(engine, requests[:-1], requests[-1])
-    launches, k2_small, k3_small = _counts()
+    path_counts.append(_counts())
     batches = engine.device_batches
     hook.remove()
 
@@ -369,12 +497,7 @@ def main() -> int:
     print(f"served {len(requests)} requests ({sum(r[0].shape[0] for r in requests)} "
           f"frames) in {batches} device batches ({warm_batches} warm-up), "
           f"{serve_s:.2f} s wall with warm-up")
-    if launches != batches or launches == 0:
-        raise AssertionError(f"K1 launched {launches} times for {batches} device batches")
-    if k2_small or k3_small:
-        raise AssertionError(f"K2/K3 launched {k2_small}/{k3_small} times at "
-                             f"{HEIGHT}x{WIDTH}, where neither engages")
-    print(f"K1 launches {launches} == device batches {batches}; K2 0, K3 0")
+    _per_batch(path_counts[-1], batches, dict(K1=1, K2=0, K3=0, K4=0, K6=0))
 
     a, b, out = captured[warm_batches]   # the first batch the worker served
     with torch.inference_mode():
@@ -393,53 +516,100 @@ def main() -> int:
     del captured
 
     # 6. serve at 1280x1920, batch 1 (config 3) -----------------------------
-    cfg3.model.concat_before_block_num = 3
     bundle3 = densenet121_u_lidar(config=cfg3, device=device, seed=SEED)
     if bundle3.num_params != NUM_PARAMS_CONFIG3:
         raise AssertionError(f"{bundle3.num_params} params, want {NUM_PARAMS_CONFIG3}")
     print(f"model: densenet121_u_lidar, {bundle3.num_params} params, "
           f"{bundle3.spec.fusion} fusion before block "
           f"{bundle3.spec.concat_before_block_num}, {bundle3.spec.dtype}, "
-          f"{FULL_HEIGHT}x{FULL_WIDTH}")
+          f"{FULL_HEIGHT}x{FULL_WIDTH}, default config")
     engine3 = InferenceEngine(bundle3, buckets=(1,), height=FULL_HEIGHT, width=FULL_WIDTH)
     requests3 = [(rng.uniform(0, 1, (1, FULL_HEIGHT, FULL_WIDTH, 3)).astype(np.float32),
                   rng.uniform(0, 1, (1, FULL_HEIGHT, FULL_WIDTH, 1)).astype(np.float32))
                  for _ in range(3)]
     _reset_counts()
     results3, serve3_s = _serve(engine3, requests3[:-1], requests3[-1])
-    full_counts = _counts()
+    path_counts.append(_counts())
     batches3 = engine3.device_batches
     _check_heat_maps(requests3, results3, FULL_HEIGHT, FULL_WIDTH)
     print(f"served {len(requests3)} requests of 1 frame at {FULL_HEIGHT}x{FULL_WIDTH} in "
           f"{batches3} device batches (1 warm-up), {serve3_s:.2f} s wall with warm-up")
-    if full_counts != (batches3, 4 * batches3, batches3):
-        raise AssertionError(f"launches K1/K2/K3 {full_counts} for {batches3} device "
-                             f"batches, want 1/4/1 per batch")
-    print(f"launches per device batch: K1 {full_counts[0] / batches3:g}, "
-          f"K2 {full_counts[1] / batches3:g}, K3 {full_counts[2] / batches3:g} "
-          f"({batches3} batches)")
+    _per_batch(path_counts[-1], batches3, dict(K1=1, K2=4, K3=1, K4=0, K6=0))
     _served_vs_f32(bundle3, *requests3[-1], results3[-1], device,
                    f"{FULL_HEIGHT}x{FULL_WIDTH}")
     torch.cuda.empty_cache()
 
-    # 7. time ------------------------------------------------------------------
+    # 7. serve at 128x192 with the opt-ins (K4, K6) ------------------------------
+    bundle_opt = densenet121_u_lidar(config=cfg_opt, device=device, seed=SEED)
+    print(f"model: densenet121_u_lidar, {HEIGHT}x{WIDTH}, dense_block_impl "
+          f"{bundle_opt.spec.dense_block_impl!r}, stem_pool_strip "
+          f"{bundle_opt.spec.stem_pool_strip!r}")
+    engine_opt = InferenceEngine(bundle_opt, buckets=buckets)
+    t0 = time.perf_counter()
+    engine_opt.warmup()
+    total, (rgb8, lidar8, served8) = _serve_buckets(
+        engine_opt, rng, HEIGHT, WIDTH, f"opt-in {HEIGHT}x{WIDTH}")
+    path_counts.append(total)
+    before = engine_opt.device_batches
+    _reset_counts()
+    engine_opt.start()
+    futures = [engine_opt.submit(rgb, lidar) for rgb, lidar in requests[:3]]
+    results_opt = [f.result(timeout=600) for f in futures]
+    engine_opt.stop()
+    counts = _counts()
+    path_counts.append(counts)
+    served = engine_opt.device_batches - before
+    _check_heat_maps(requests[:3], results_opt, HEIGHT, WIDTH)
+    # the worker coalesces, so the buckets of its batches are not known here
+    if not (counts["K1"] == served and counts["K2"] == counts["K3"] == 0
+            and 3 * served <= counts["K4"] <= 5 * served
+            and counts["K6"] % 2 == 0 and counts["K6"] <= 2 * served):
+        raise AssertionError(f"worker at {HEIGHT}x{WIDTH} with the opt-ins: launches "
+                             f"{counts} for {served} device batches")
+    print(f"worker with the opt-ins: {served} device batches, launches {counts}, "
+          f"{time.perf_counter() - t0:.2f} s wall with warm-up")
+    _served_vs_f32(bundle_opt, rgb8, lidar8, served8, device,
+                   f"{HEIGHT}x{WIDTH} opt-ins (K4, K6)")
+
+    # 8. serve at 1280x1920, batch 1 (config 3), with the opt-ins ---------------
+    bundle3_opt = densenet121_u_lidar(config=cfg3_opt, device=device, seed=SEED)
+    engine3_opt = InferenceEngine(bundle3_opt, buckets=(1,), height=FULL_HEIGHT,
+                                  width=FULL_WIDTH)
+    _reset_counts()
+    results3_opt, serve3_opt_s = _serve(engine3_opt, requests3[:-1], requests3[-1])
+    path_counts.append(_counts())
+    batches3_opt = engine3_opt.device_batches
+    _check_heat_maps(requests3, results3_opt, FULL_HEIGHT, FULL_WIDTH)
+    print(f"opt-in {FULL_HEIGHT}x{FULL_WIDTH}: served {len(requests3)} requests in "
+          f"{batches3_opt} device batches, {serve3_opt_s:.2f} s wall with warm-up")
+    _per_batch(path_counts[-1], batches3_opt, dict(K1=1, K2=4, K3=1, K4=0, K6=2))
+    _served_vs_f32(bundle3_opt, *requests3[-1], results3_opt[-1], device,
+                   f"{FULL_HEIGHT}x{FULL_WIDTH} opt-ins (K6)")
+    torch.cuda.empty_cache()
+
+    # 9. time ------------------------------------------------------------------
     tag = f"[{card}]"
-    for batch in (1, 8, 32, 256):
-        rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
-        lidar = torch.rand(batch, HEIGHT, WIDTH, 1, generator=gen).to(device, spec.dtype)
-        ms, _ = _median_ms(lambda: engine.forward(rgb, lidar), iters=20)
-        print(f"{tag} engine forward b{batch} bf16 {HEIGHT}x{WIDTH}: median {ms:.4f} ms, "
-              f"{batch / ms * 1e3:.1f} frames/s (20 iterations)")
+    for label, eng in (("default", engine), ("opt-in", engine_opt)):
+        for batch in (1, 8, 32, 256):
+            rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
+            lidar = torch.rand(batch, HEIGHT, WIDTH, 1, generator=gen).to(device, spec.dtype)
+            ms, _ = _median_ms(lambda: eng.forward(rgb, lidar), iters=20)
+            print(f"{tag} engine forward {label} b{batch} bf16 {HEIGHT}x{WIDTH}: median "
+                  f"{ms:.4f} ms, {batch / ms * 1e3:.1f} frames/s (20 iterations)")
     rgb = torch.rand(1, FULL_HEIGHT, FULL_WIDTH, 3, generator=gen).to(device, torch.bfloat16)
     lidar = torch.rand(1, FULL_HEIGHT, FULL_WIDTH, 1, generator=gen).to(device, torch.bfloat16)
-    ms, _ = _median_ms(lambda: engine3.forward(rgb, lidar), iters=15)
-    print(f"{tag} engine forward b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid fusion before "
-          f"block 3): median {ms:.4f} ms, {1e3 / ms:.2f} frames/s (15 iterations)")
+    for label, eng in (("default", engine3), ("opt-in", engine3_opt)):
+        ms, _ = _median_ms(lambda: eng.forward(rgb, lidar), iters=15)
+        print(f"{tag} engine forward {label} b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid "
+              f"fusion before block 3): median {ms:.4f} ms, {1e3 / ms:.2f} frames/s "
+              f"(15 iterations)")
+    del rgb, lidar
+    torch.cuda.empty_cache()
 
     a, b, params = _k1_inputs(gen, 256, 16, 24, 128, 128, 128, torch.bfloat16, device)
     k1_ms, k1_plain_ms = _in_turns(
         lambda: fused.concat_bn_relu_conv1x1(a, b, **params),
-        lambda: fused.concat_bn_relu_conv1x1_reference(a, b, **params), 25)
+        lambda: fused.concat_bn_relu_conv1x1_reference(a, b, **params), iters=25)
     print(f"{tag} K1 b256 (98304 rows, 128+128->128, bf16): median {k1_ms:.4f} ms; "
           f"plain version {k1_plain_ms:.4f} ms (50 iterations each, in turns)")
     k2_ms = {}
@@ -447,35 +617,78 @@ def main() -> int:
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device)
         k2_ms[name] = _in_turns(
             lambda: dense_block_strip.dense_block_strip(x, folded),
-            lambda: dense_block_strip.dense_block_strip_reference(x, folded), 10)
+            lambda: dense_block_strip.dense_block_strip_reference(x, folded), iters=10)
         print(f"{tag} K2 {name} (1, {h}, {w}, {c0}) L={layers} bf16: median "
-              f"{k2_ms[name][0]:.4f} ms; plain version (cuDNN, bf16) "
+              f"{k2_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
               f"{k2_ms[name][1]:.4f} ms (20 iterations each, in turns)")
     x_lo, raw, consts = _k3_inputs(gen, *K3_FULL, torch.bfloat16, device)
     k3_ms, k3_plain_ms = _in_turns(
         lambda: phase_head.phase_head(x_lo, raw, **consts),
-        lambda: phase_head.phase_head_reference(x_lo, raw, **consts), 10)
+        lambda: phase_head.phase_head_reference(x_lo, raw, **consts), iters=10)
     print(f"{tag} K3 {FULL_HEIGHT}x{FULL_WIDTH} (x_lo {tuple(x_lo.shape)}, raw "
           f"{tuple(raw.shape)}) bf16: median {k3_ms:.4f} ms; plain version (cuDNN, "
           f"bf16) {k3_plain_ms:.4f} ms (20 iterations each, in turns)")
+    k4_ms = {}
+    for name, (h, w, c0, layers) in K4_BLOCKS.items():
+        x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device,
+                               batch=256)
+        # the model's own plain loop, which K4 replaces on the opt-in path
+        block = DenseBlock(layers, c0, 4, 32, 0.0).to(device).eval()
+        x_nchw = x.permute(0, 3, 1, 2)          # channels_last, as the model holds it
+        with torch.inference_mode():
+            k4_ms[name] = _in_turns(
+                lambda: dense_block.dense_block(x, folded),
+                lambda: dense_block.dense_block_reference(x, folded),
+                lambda: block(x_nchw), iters=5)
+        print(f"{tag} K4 {name} (256, {h}, {w}, {c0}) L={layers} bf16: median "
+              f"{k4_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
+              f"{k4_ms[name][1]:.4f} ms; the model's plain loop (cuDNN bf16 convs, BN "
+              f"in bf16) {k4_ms[name][2]:.4f} ms (10 iterations each, in turns)")
+    x, w7, gamma, beta = _k6_inputs(gen, 1, *K6_FULL, 64, torch.bfloat16, device)
+    # the model's own unfused stem (conv0, norm0, ReLU, pool0), which K6 replaces
+    stem = Encoder(ModelSpec(), K6_FULL[2], up_to_block=1).to(device).eval()
+    x_nchw = x.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        k6_ms, k6_plain_ms, k6_model_ms = _in_turns(
+            lambda: stem_pool.stem_pool(x, w7, gamma, beta),
+            lambda: stem_pool.stem_pool_reference(x, w7, gamma, beta),
+            lambda: stem(x_nchw), iters=10)
+    print(f"{tag} K6 {FULL_HEIGHT}x{FULL_WIDTH} x {tuple(x.shape)} F=64 bf16: median "
+          f"{k6_ms:.4f} ms; plain version (cuDNN conv0 in f32 from bf16 inputs, BN, "
+          f"ReLU, max pool in f32) {k6_plain_ms:.4f} ms; the model's unfused stem "
+          f"(cuDNN bf16) {k6_model_ms:.4f} ms (20 iterations each, in turns)")
 
+    launches = {name: sum(c[name] for c in path_counts) for name in worst}
     print(json.dumps({"kernels": [
         {"name": "concat_bn_relu_conv1x1", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/concat_bn_relu_conv1x1.cu",
          "replaces": "dmmfods_tpu/ops/fused.py:618",
-         "launches": launches + full_counts[0], "max_abs_err": worst["K1"],
+         "launches": launches["K1"], "max_abs_err": worst["K1"],
          "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "dense_block_strip", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block_strip.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block_strip.py:341",
-         "launches": full_counts[1], "max_abs_err": worst["K2"],
+         "launches": launches["K2"], "max_abs_err": worst["K2"],
          "ms": k2_ms["block1"][0], "plain_ms": k2_ms["block1"][1],
          "ms_block2": k2_ms["block2"][0], "plain_ms_block2": k2_ms["block2"][1]},
         {"name": "phase_head", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/phase_head.cu",
          "replaces": "dmmfods_tpu/ops/pallas/phase_head.py:246",
-         "launches": full_counts[2], "max_abs_err": worst["K3"],
+         "launches": launches["K3"], "max_abs_err": worst["K3"],
          "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "dense_block", "route": "cuda",
+         "source": "dmmfods_tpu_torch/csrc/dense_block.cu",
+         "replaces": "dmmfods_tpu/ops/pallas/dense_block.py:262",
+         "launches": launches["K4"], "max_abs_err": worst["K4"],
+         "ms": k4_ms["block1"][0], "plain_ms": k4_ms["block1"][1],
+         "model_loop_ms": k4_ms["block1"][2],
+         **{f"{key}_{name}": k4_ms[name][i] for name in ("block2", "block3", "block4")
+            for i, key in enumerate(("ms", "plain_ms", "model_loop_ms"))}},
+        {"name": "stem_pool", "route": "cuda",
+         "source": "dmmfods_tpu_torch/csrc/stem_pool.cu",
+         "replaces": "dmmfods_tpu/ops/pallas/stem_pool.py:252",
+         "launches": launches["K6"], "max_abs_err": worst["K6"],
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "model_stem_ms": k6_model_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

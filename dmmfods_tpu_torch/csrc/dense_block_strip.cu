@@ -32,16 +32,12 @@
 // reads the [0, width) prefix and writes the disjoint [width, width + G)
 // slab, so no block of a launch reads what another writes.
 //
-// The layer kernel: one 256-thread block per 8x16 output tile. It
-//   1. stages the tile's 10x18 halo of the prefix 32 channels at a time,
-//      BN1-folded and ReLU'd on the way into shared memory, beside the
-//      matching 32 rows of w1, and accumulates the 1x1 in f32 registers
-//      (12 pixels x 8 channels per thread);
-//   2. applies BN2 + ReLU + the image mask and keeps y2 for the whole halo
-//      in shared memory (180 x 128, in T);
-//   3. runs the 3x3 from shared memory, one tap of w3 staged at a time
-//      (4 pixels x 4 channels per thread), and stores the G new channels.
-// The 1x1 is recomputed on the halo ring (180 / 128 = 1.41x its work).
+// The layer kernel: one 256-thread block per 8x16 output tile, running
+// dense_layer_tile (csrc/dense_layer_tile.cuh, shared with K4): the tile's
+// 10x18 halo of the prefix staged 32 channels at a time with BN1 + ReLU and
+// the 1x1 into f32 registers, BN2 + ReLU + the image mask into y2 in shared
+// memory, then the 3x3 and the store of the G new channels. The 1x1 is
+// recomputed on the halo ring (180 / 128 = 1.41x its work).
 //
 // What bounds it on an H100: at block 1 of the 1280x1920 frame one block
 // call does about 116 GFLOP (with the ring) on 153,600 pixels and moves
@@ -60,166 +56,24 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "dtype.cuh"
+#include "dense_layer_tile.cuh"
 
 namespace {
 
 constexpr int kTH = 8;                       // output tile rows
 constexpr int kTW = 16;                      // output tile columns
-constexpr int kHH = kTH + 2;                 // halo rows
-constexpr int kHW = kTW + 2;                 // halo columns
-constexpr int kHalo = kHH * kHW;             // 180 halo pixels
-constexpr int kNP = 192;                     // halo pixels padded to 16 x 12
-constexpr int kNPS = kNP + 1;                // odd stride: conflict-free staging
-constexpr int kKMax = 128;                   // bottleneck width K (bn_size * G)
-constexpr int kKS = kKMax + 2;               // y2 row stride
-constexpr int kGMax = 32;                    // growth rate G
-constexpr int kCK = 32;                      // prefix channels staged per step
-constexpr int kThreads = 256;
-
-constexpr int kStageFloats =
-    (kCK * kNPS + kCK * kKMax) > (kKMax * kGMax) ? (kCK * kNPS + kCK * kKMax)
-                                                 : (kKMax * kGMax);
 
 template <typename T>
-constexpr size_t smem_bytes() {
-  return kStageFloats * sizeof(float) + kHalo * kKS * sizeof(T);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kLayerThreads, 1)
 dense_layer_kernel(T* __restrict__ buf, const float* __restrict__ g1,
                    const float* __restrict__ b1, const T* __restrict__ w1,
                    const float* __restrict__ g2, const float* __restrict__ b2,
                    const T* __restrict__ w3, int H, int W, int cmax, int width,
                    int K, int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* stage = reinterpret_cast<float*>(smem_raw);
-  float* acts = stage;                       // [kCK][kNPS]
-  float* w1s = stage + kCK * kNPS;           // [kCK][kKMax]
-  float* w3s = stage;                        // [kKMax][kGMax], after the 1x1
-  T* y2s = reinterpret_cast<T*>(stage + kStageFloats);  // [kHalo][kKS]
-
-  const int tid = threadIdx.x;
-  const int y0 = blockIdx.y * kTH;
-  const int x0 = blockIdx.x * kTW;
-  T* img = buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax;
-
-  // ---- 1x1 over the halo: pixels tp + 16 i, channels tk + 16 j ----------
-  const int tk = tid % 16;
-  const int tp = tid / 16;
-  float acc[12][8];
-#pragma unroll
-  for (int i = 0; i < 12; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < width; c0 += kCK) {
-    for (int e = tid; e < kNP * kCK; e += kThreads) {
-      const int p = e / kCK;
-      const int kk = e % kCK;
-      const int c = c0 + kk;
-      float v = 0.f;
-      if (p < kHalo && c < width) {
-        const int gy = y0 - 1 + p / kHW;
-        const int gx = x0 - 1 + p % kHW;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-          const float xv = to_f32(img[(static_cast<int64_t>(gy) * W + gx) * cmax + c]);
-          v = round_to<T>(fmaxf(fmaf(xv, g1[c], b1[c]), 0.f));
-        }
-      }
-      acts[kk * kNPS + p] = v;
-    }
-    for (int e = tid; e < kCK * kKMax; e += kThreads) {
-      const int kk = e / kKMax;
-      const int k = e % kKMax;
-      const int c = c0 + kk;
-      w1s[e] = (c < width && k < K) ? to_f32(w1[static_cast<int64_t>(c) * K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kCK; ++kk) {
-      float av[12], wv[8];
-#pragma unroll
-      for (int i = 0; i < 12; ++i) av[i] = acts[kk * kNPS + tp + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = w1s[kk * kKMax + tk + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 12; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // ---- BN2 + ReLU + the image mask -> y2 in shared memory ---------------
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    const int p = tp + 16 * i;
-    if (p >= kHalo) continue;
-    const int gy = y0 - 1 + p / kHW;
-    const int gx = x0 - 1 + p % kHW;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = tk + 16 * j;
-      if (k >= K) continue;
-      const float v = inside ? fmaxf(fmaf(acc[i][j], g2[k], b2[k]), 0.f) : 0.f;
-      y2s[p * kKS + k] = from_f32<T>(v);
-    }
-  }
-
-  // ---- 3x3 over y2: output pixels tq + 32 i, channels tg + 8 j ---------
-  const int tg = tid % 8;
-  const int tq = tid / 8;
-  int base[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = tq + 32 * i;
-    base[i] = (o / kTW) * kHW + (o % kTW);
-  }
-  float acc2[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc2[i][j] = 0.f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // y2s complete (tap 0) / w3s free (later taps)
-    const T* w3t = w3 + static_cast<int64_t>(tap) * K * G;
-    for (int e = tid; e < kKMax * kGMax; e += kThreads) {
-      const int k = e / kGMax;
-      const int g = e % kGMax;
-      w3s[e] = (k < K && g < G) ? to_f32(w3t[k * G + g]) : 0.f;
-    }
-    __syncthreads();
-    const int shift = (tap / 3) * kHW + (tap % 3);
-    for (int k = 0; k < K; ++k) {
-      float wv[4], yv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w3s[k * kGMax + tg + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) yv[i] = to_f32(y2s[(base[i] + shift) * kKS + k]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(yv[i], wv[j], acc2[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = tq + 32 * i;
-    const int gy = y0 + o / kTW;
-    const int gx = x0 + o % kTW;
-    if (gy >= H || gx >= W) continue;
-    T* dst = img + (static_cast<int64_t>(gy) * W + gx) * cmax + width;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int g = tg + 8 * j;
-      if (g < G) dst[g] = from_f32<T>(acc2[i][j]);
-    }
-  }
+  dense_layer_tile<T, kTH, kTW>(
+      smem_raw, buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H, W, cmax,
+      width, K, G, blockIdx.y * kTH, blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
 }
 
 template <typename T>
@@ -227,7 +81,7 @@ int run_block(const void* x, void* out, const float* g1, const float* b1,
               const void* w1, const float* g2, const float* b2, const void* w3,
               int B, int H, int W, int c0, int L, int G, int K, cudaStream_t s) {
   const int cmax = c0 + L * G;
-  const size_t smem = smem_bytes<T>();
+  const size_t smem = LayerTile<kTH, kTW>::smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       dense_layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -240,7 +94,7 @@ int run_block(const void* x, void* out, const float* g1, const float* b1,
   const T* w1t = static_cast<const T*>(w1);
   const T* w3t = static_cast<const T*>(w3);
   for (int l = 0; l < L; ++l) {
-    dense_layer_kernel<T><<<grid, kThreads, smem, s>>>(
+    dense_layer_kernel<T><<<grid, kLayerThreads, smem, s>>>(
         static_cast<T*>(out), g1 + static_cast<int64_t>(l) * cmax,
         b1 + static_cast<int64_t>(l) * cmax, w1t + static_cast<int64_t>(l) * cmax * K,
         g2 + static_cast<int64_t>(l) * K, b2 + static_cast<int64_t>(l) * K,

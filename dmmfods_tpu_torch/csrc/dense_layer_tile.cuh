@@ -1,0 +1,205 @@
+// One dense layer of a DenseNet block over one TH x TW output tile: the body
+// shared by K2 (csrc/dense_block_strip.cu: one tile per block, one launch per
+// layer) and K4 (csrc/dense_block.cu: one launch per block, each block
+// looping over the layers and its tiles). With BN folded into per-channel
+// (gamma, beta) and width = c0 + l * G it computes
+//
+//   act = ReLU(img[..., :width] * g1 + b1)            rounded to T
+//   y1  = act @ w1                                    f32 accumulation
+//   y2  = ReLU(y1 * g2 + b2), zero outside the image  rounded to T
+//   img[..., width:width + G] = conv3x3(y2, w3)        f32 accumulation
+//
+// for the tile's output pixels. The zero outside the image is the 3x3's
+// zero padding; it has to sit after BN2, whose bias makes a zeroed pixel
+// non-zero. Only channels [0, width) of img are read: the slabs above are
+// unwritten (an uninitialised buffer may hold NaN, and 0 * NaN is NaN).
+//
+// 256 threads:
+//   1. stage the tile's (TH+2) x (TW+2) halo of the prefix 32 channels at a
+//      time, BN1-folded and ReLU'd on the way into shared memory, beside the
+//      matching 32 rows of w1, and accumulate the 1x1 in f32 registers
+//      (kPI pixels x 8 channels per thread);
+//   2. apply BN2 + ReLU + the image mask and keep y2 for the whole halo in
+//      shared memory (halo x 128, in T);
+//   3. run the 3x3 from shared memory, one tap of w3 staged at a time
+//      (kOI pixels x 4 channels per thread), and store the G new channels.
+// The 1x1 is recomputed on the halo ring. K <= 128 and G <= 32 are the
+// shared-memory plan's limits; the callers refuse anything larger.
+#pragma once
+
+#include <stdint.h>
+
+#include "dtype.cuh"
+
+namespace {
+
+constexpr int kLayerThreads = 256;
+constexpr int kKMax = 128;                   // bottleneck width K (bn_size * G)
+constexpr int kKS = kKMax + 2;               // y2 row stride
+constexpr int kGMax = 32;                    // growth rate G
+constexpr int kCK = 32;                      // prefix channels staged per step
+
+template <int TH, int TW>
+struct LayerTile {
+  static constexpr int kHW = TW + 2;                  // halo columns
+  static constexpr int kHalo = (TH + 2) * kHW;        // halo pixels
+  static constexpr int kNP = (kHalo + 15) / 16 * 16;  // padded to 16 x kPI
+  static constexpr int kPI = kNP / 16;                // 1x1 pixels per thread
+  static constexpr int kNPS = kNP + 1;                // odd stride: conflict-free staging
+  static constexpr int kOut = TH * TW;
+  static constexpr int kOI = (kOut + 31) / 32;        // 3x3 pixels per thread
+  static constexpr int kStageFloats =
+      (kCK * kNPS + kCK * kKMax) > (kKMax * kGMax) ? (kCK * kNPS + kCK * kKMax)
+                                                   : (kKMax * kGMax);
+  static_assert(kOut <= 128 && kNP <= 192, "tile too large for the register plan");
+
+  template <typename T>
+  static constexpr size_t smem_bytes() {
+    return kStageFloats * sizeof(float) + kHalo * kKS * sizeof(T);
+  }
+};
+
+// The layer over the tile whose top-left output pixel is (y0, x0) of the
+// (H, W, cmax) NHWC image `img`. Layer-sliced operands: g1, b1 (cmax) and w1
+// (cmax, K) from the layer's row, g2, b2 (K), w3 (3, 3, K, G). Ends with a
+// barrier, so a block may call it again at once for another tile.
+template <typename T, int TH, int TW>
+__device__ __forceinline__ void dense_layer_tile(
+    unsigned char* smem_raw, T* img, int H, int W, int cmax, int width, int K, int G,
+    int y0, int x0, const float* __restrict__ g1, const float* __restrict__ b1,
+    const T* __restrict__ w1, const float* __restrict__ g2,
+    const float* __restrict__ b2, const T* __restrict__ w3) {
+  using Tile = LayerTile<TH, TW>;
+  constexpr int kHW = Tile::kHW;
+  constexpr int kHalo = Tile::kHalo;
+  constexpr int kNP = Tile::kNP;
+  constexpr int kPI = Tile::kPI;
+  constexpr int kNPS = Tile::kNPS;
+  float* stage = reinterpret_cast<float*>(smem_raw);
+  float* acts = stage;                       // [kCK][kNPS]
+  float* w1s = stage + kCK * kNPS;           // [kCK][kKMax]
+  float* w3s = stage;                        // [kKMax][kGMax], after the 1x1
+  T* y2s = reinterpret_cast<T*>(stage + Tile::kStageFloats);  // [kHalo][kKS]
+
+  const int tid = threadIdx.x;
+
+  // ---- 1x1 over the halo: pixels tp + 16 i, channels tk + 16 j ----------
+  const int tk = tid % 16;
+  const int tp = tid / 16;
+  float acc[kPI][8];
+#pragma unroll
+  for (int i = 0; i < kPI; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int c0 = 0; c0 < width; c0 += kCK) {
+    for (int e = tid; e < kNP * kCK; e += kLayerThreads) {
+      const int p = e / kCK;
+      const int kk = e % kCK;
+      const int c = c0 + kk;
+      float v = 0.f;
+      if (p < kHalo && c < width) {
+        const int gy = y0 - 1 + p / kHW;
+        const int gx = x0 - 1 + p % kHW;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const float xv = to_f32(img[(static_cast<int64_t>(gy) * W + gx) * cmax + c]);
+          v = round_to<T>(fmaxf(fmaf(xv, g1[c], b1[c]), 0.f));
+        }
+      }
+      acts[kk * kNPS + p] = v;
+    }
+    for (int e = tid; e < kCK * kKMax; e += kLayerThreads) {
+      const int kk = e / kKMax;
+      const int k = e % kKMax;
+      const int c = c0 + kk;
+      w1s[e] = (c < width && k < K) ? to_f32(w1[static_cast<int64_t>(c) * K + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kCK; ++kk) {
+      float av[kPI], wv[8];
+#pragma unroll
+      for (int i = 0; i < kPI; ++i) av[i] = acts[kk * kNPS + tp + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wv[j] = w1s[kk * kKMax + tk + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kPI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // ---- BN2 + ReLU + the image mask -> y2 in shared memory ---------------
+#pragma unroll
+  for (int i = 0; i < kPI; ++i) {
+    const int p = tp + 16 * i;
+    if (p >= kHalo) continue;
+    const int gy = y0 - 1 + p / kHW;
+    const int gx = x0 - 1 + p % kHW;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = tk + 16 * j;
+      if (k >= K) continue;
+      const float v = inside ? fmaxf(fmaf(acc[i][j], g2[k], b2[k]), 0.f) : 0.f;
+      y2s[p * kKS + k] = from_f32<T>(v);
+    }
+  }
+
+  // ---- 3x3 over y2: output pixels tq + 32 i, channels tg + 8 j ---------
+  const int tg = tid % 8;
+  const int tq = tid / 8;
+  int base[Tile::kOI];
+#pragma unroll
+  for (int i = 0; i < Tile::kOI; ++i) {
+    const int o = tq + 32 * i;
+    const int oc = o < Tile::kOut ? o : 0;   // a slot past the tile reads in range
+    base[i] = (oc / TW) * kHW + (oc % TW);
+  }
+  float acc2[Tile::kOI][4];
+#pragma unroll
+  for (int i = 0; i < Tile::kOI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc2[i][j] = 0.f;
+
+  for (int tap = 0; tap < 9; ++tap) {
+    __syncthreads();  // y2s complete (tap 0) / w3s free (later taps)
+    const T* w3t = w3 + static_cast<int64_t>(tap) * K * G;
+    for (int e = tid; e < kKMax * kGMax; e += kLayerThreads) {
+      const int k = e / kGMax;
+      const int g = e % kGMax;
+      w3s[e] = (k < K && g < G) ? to_f32(w3t[k * G + g]) : 0.f;
+    }
+    __syncthreads();
+    const int shift = (tap / 3) * kHW + (tap % 3);
+    for (int k = 0; k < K; ++k) {
+      float wv[4], yv[Tile::kOI];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = w3s[k * kGMax + tg + 8 * j];
+#pragma unroll
+      for (int i = 0; i < Tile::kOI; ++i) yv[i] = to_f32(y2s[(base[i] + shift) * kKS + k]);
+#pragma unroll
+      for (int i = 0; i < Tile::kOI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(yv[i], wv[j], acc2[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < Tile::kOI; ++i) {
+    const int o = tq + 32 * i;
+    const int gy = y0 + o / TW;
+    const int gx = x0 + o % TW;
+    if (o >= Tile::kOut || gy >= H || gx >= W) continue;
+    T* dst = img + (static_cast<int64_t>(gy) * W + gx) * cmax + width;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int g = tg + 8 * j;
+      if (g < G) dst[g] = from_f32<T>(acc2[i][j]);
+    }
+  }
+  __syncthreads();  // w3s (aliasing the next tile's staging) and y2s free
+}
+
+}  // namespace

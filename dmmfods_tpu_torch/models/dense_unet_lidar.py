@@ -12,17 +12,30 @@ model's ``state_dict`` onto the JAX variables key for key.
 Only the math is ported, plus the kernels of the eval path. The JAX
 model's TPU lowering options (rows-as-batch forms, dense-block buffers, the
 XLA forms of the phase-space head) have no counterpart here: each one
-computes the plain form below. In eval mode three modules hand their work to
+computes the plain form below. In eval mode four modules hand their work to
 a hand-written CUDA kernel (the plain version on a CPU tensor):
 
 * ``ConcatFuse``: K1, :func:`..ops.fused.concat_bn_relu_conv1x1`, always;
 * ``DenseBlock``: K2, :func:`..ops.dense_block_strip.dense_block_strip`, at
-  batch 1 on planes of at least ``STRIP_MIN_PIXELS`` pixels;
+  batch 1 on planes of at least ``STRIP_MIN_PIXELS`` pixels; else, where
+  ``gpu.dense_block_impl`` names ``pallas`` for the block, K4,
+  :func:`..ops.dense_block.dense_block`, on the shapes JAX's sample-group
+  rule takes (``ops.dense_block.eligible``);
+* ``Encoder``: K6, :func:`..ops.stem_pool.stem_pool`, for conv0 + norm0 +
+  ReLU + pool0 at batch 1, where ``gpu.stem_pool_strip`` is ``on`` and
+  JAX's regime takes the shape (:func:`_stem_pool_ok`);
 * ``Head``: K3, :func:`..ops.phase_head.phase_head`, at batch 1 on output
   planes of more than ``HEAD_KERNEL_MIN_PIXELS`` pixels.
 
-At the 128x192 working resolution only K1 engages; at 1280x1920 batch 1 the
-blocks 1 and 2 of both streams and the head do too.
+The K4 and K6 gates are JAX's own decisions, its TPU cost models included,
+kept only so that both packages run those kernels on the same shapes; they
+say nothing about the card, and a kernel with no JAX gate to match needs
+no such model.
+
+With the default config, at the 128x192 working resolution only K1
+engages; at 1280x1920 batch 1 the blocks 1 and 2 of both streams and the
+head do too. The opt-ins add K4 on the 128x192 blocks (DenseNet-121: three
+block calls at b1, four at b8, five from b32) and K6 on both stems at b1.
 
 Layout: :meth:`DenseUNetLidar.forward` takes and returns NHWC tensors, like
 the JAX model. Inside, tensors are NCHW in shape and ``channels_last`` in
@@ -47,12 +60,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dense_block import fold_block_params
+from ..ops.dense_block import dense_block, fold_block_params
+from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip
 from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
 from ..ops.phase_head import phase_head
+from ..ops.stem_pool import eligible as stem_pool_eligible
+from ..ops.stem_pool import stem_pool
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the JAX model's dense-block lowerings: 'pallas' selects K4, the XLA forms
+# the plain loop
+_BLOCK_IMPLS = ("concat", "buffer", "vjp", "pallas")
+# the JAX model's stem_pool_strip values: 'on' selects K6; 'force', JAX's
+# override of its TPU quarantine, means 'on' here; 'auto' and 'off' do not
+_STEM_POOL_MODES = ("auto", "off", "on", "force")
 
 # The kernels' gates, read at each call. A dense block of a batch-1 plane of
 # at least this many pixels runs as K2 (``ModelSpec.rows_min_pixels`` of the
@@ -74,7 +96,8 @@ class ModelSpec:
 
     Field defaults equal the config defaults (DenseNet-121, mid fusion).
     ``num_layers_before_blocks`` and ``memory_efficient`` of the config
-    change nothing in the math and are not read."""
+    change nothing in the math and are not read. ``dense_block_impl`` and
+    ``stem_pool_strip`` select K4 and K6 (``config.py``)."""
 
     growth_rate: int = 32
     block_config: Tuple[int, ...] = (6, 12, 24, 16)
@@ -86,6 +109,23 @@ class ModelSpec:
     drop_rate: float = 0.0
     num_classes: int = 3
     dtype: Any = torch.float32
+    dense_block_impl: str = "concat,concat,buffer,buffer"
+    stem_pool_strip: str = "auto"
+
+    def __post_init__(self):
+        for i in range(len(self.block_config)):
+            if self.impl_for_block(i) not in _BLOCK_IMPLS:
+                raise ValueError(f"dense_block_impl entries must be one of "
+                                 f"{_BLOCK_IMPLS}, got {self.dense_block_impl!r}")
+        if self.stem_pool_strip not in _STEM_POOL_MODES:
+            raise ValueError(f"stem_pool_strip must be one of {_STEM_POOL_MODES}, "
+                             f"got {self.stem_pool_strip!r}")
+
+    def impl_for_block(self, i: int) -> str:
+        """The lowering of 0-based block ``i``: its entry of the
+        comma-separated ``dense_block_impl``, the last one repeated."""
+        impls = self.dense_block_impl.split(",")
+        return impls[i].strip() if i < len(impls) else impls[-1].strip()
 
     @classmethod
     def from_config(cls, config, **overrides):
@@ -108,6 +148,10 @@ class ModelSpec:
                 raise ValueError(f"gpu.compute_dtype must be one of "
                                  f"{sorted(_COMPUTE_DTYPES)}, got {name!r}")
             kwargs["dtype"] = _COMPUTE_DTYPES[name]
+            kwargs["dense_block_impl"] = str(gpu.get(
+                "dense_block_impl", cls.dense_block_impl))
+            kwargs["stem_pool_strip"] = str(gpu.get(
+                "stem_pool_strip", cls.stem_pool_strip))
         kwargs.update(overrides)
         return cls(**kwargs)
 
@@ -204,20 +248,27 @@ class DenseLayer(nn.Module):
 
 class DenseBlock(nn.Module):
     """Concatenating dense block (torchvision ``_DenseBlock``): each layer
-    reads the concat of the block input and every earlier layer's output."""
+    reads the concat of the block input and every earlier layer's output.
+    ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``."""
 
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
-                 drop_rate):
+                 drop_rate, impl="concat"):
         super().__init__()
+        self.impl = impl
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 num_input_features + i * growth_rate, growth_rate, bn_size,
                 drop_rate))
 
     def forward(self, x):
+        """The JAX block's order: the K2 strip gate, then K4, else the loop."""
         if self._strip_eligible(x):
             out = dense_block_strip(x.permute(0, 2, 3, 1).contiguous(),
                                     fold_block_params(self))
+            return out.permute(0, 3, 1, 2)
+        if self._k4_eligible(x):
+            out = dense_block(x.permute(0, 2, 3, 1).contiguous(),
+                              fold_block_params(self))
             return out.permute(0, 3, 1, 2)
         features = x
         for layer in self.children():
@@ -229,6 +280,18 @@ class DenseBlock(nn.Module):
         return (not self.training and x.shape[0] == 1
                 and x.shape[2] * x.shape[3] >= STRIP_MIN_PIXELS
                 and all(layer.drop_rate == 0 for layer in self.children()))
+
+    def _k4_eligible(self, x) -> bool:
+        """Eval, impl ``pallas``, no dropout, and JAX's sample-group rule:
+        the whole block as K4 (never in train mode)."""
+        layers = list(self.children())
+        if (self.impl != "pallas" or self.training
+                or any(layer.drop_rate > 0 for layer in layers)):
+            return False
+        growth = layers[0].conv2.out_channels
+        return dense_block_eligible(
+            len(layers), x.shape[1], growth, layers[0].conv1.out_channels // growth,
+            x.shape[2], x.shape[3], dtype_bytes=x.element_size(), batch=x.shape[0])
 
 
 class Transition(nn.Module):
@@ -256,6 +319,7 @@ class Encoder(nn.Module):
     def __init__(self, spec: ModelSpec, in_channels: int, up_to_block=None):
         super().__init__()
         init = spec.num_init_features
+        self.spec = spec
         self.conv0 = nn.Conv2d(in_channels, init, 7, stride=2, padding=3, bias=False)
         self.norm0 = _batch_norm(init)
         self.full_depth = up_to_block is None
@@ -266,7 +330,7 @@ class Encoder(nn.Module):
             num_layers = spec.block_config[i]
             self.add_module(f"denseblock{i + 1}", DenseBlock(
                 num_layers, num_features, spec.bn_size, spec.growth_rate,
-                spec.drop_rate))
+                spec.drop_rate, impl=spec.impl_for_block(i)))
             num_features += num_layers * spec.growth_rate
             if i != self.last_block:
                 self.add_module(f"transition{i + 1}",
@@ -276,10 +340,22 @@ class Encoder(nn.Module):
 
     def forward(self, x, after_transition=None):
         """``after_transition(i, x)``, if given, runs on the output of
-        transition ``i`` (1-based) and replaces it: the mid-fusion hook."""
-        x = _bn_relu(_conv(x, self.conv0), self.norm0)
-        shapes = [tuple(x.shape[-2:])]
-        x = F.max_pool2d(x, 3, 2, 1)
+        transition ``i`` (1-based) and replaces it: the mid-fusion hook.
+        Where :func:`_stem_pool_ok` holds, the stem and pool0 run as K6; the
+        pre-pool stem size still goes onto ``shapes`` for the decoder."""
+        b, c, h, w = x.shape
+        if _stem_pool_ok(self.spec, b, h, w, c, self.training):
+            norm = self.norm0
+            gamma, beta = fold_bn(norm.weight, norm.bias, norm.running_mean,
+                                  norm.running_var, norm.eps)
+            shapes = [(h // 2, w // 2)]
+            x = stem_pool(x.permute(0, 2, 3, 1).contiguous(),
+                          self.conv0.weight.permute(2, 3, 1, 0), gamma, beta)
+            x = x.permute(0, 3, 1, 2)
+        else:
+            x = _bn_relu(_conv(x, self.conv0), self.norm0)
+            shapes = [tuple(x.shape[-2:])]
+            x = F.max_pool2d(x, 3, 2, 1)
         skips = []
         for i in range(self.num_blocks):
             x = getattr(self, f"denseblock{i + 1}")(x)
@@ -291,6 +367,16 @@ class Encoder(nn.Module):
                 if after_transition is not None:
                     x = after_transition(i + 1, x)
         return x, skips, shapes
+
+
+def _stem_pool_ok(spec, b: int, h: int, w: int, c: int, train: bool) -> bool:
+    """Whether an encoder's stem + pool0 runs as K6: JAX's
+    ``_stem_pool_ok`` without its TPU quarantine, as ``on`` engages in JAX
+    off the TPU. ``on`` (or ``force``), eval, batch 1, and the shape in
+    JAX's regime (``ops.stem_pool.eligible``)."""
+    if spec.stem_pool_strip not in ("on", "force") or train or b != 1:
+        return False
+    return stem_pool_eligible(b, h, w, c, spec.num_init_features, spec.dtype.itemsize)
 
 
 class ConcatFuse(nn.Module):

@@ -28,8 +28,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("concat_bn_relu_conv1x1.cu", "dense_block_strip.cu", "phase_head.cu")
-HEADERS = ("dtype.cuh",)
+SOURCES = ("concat_bn_relu_conv1x1.cu", "dense_block_strip.cu", "phase_head.cu",
+           "dense_block.cu", "stem_pool.cu")
+HEADERS = ("dtype.cuh", "dense_layer_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,11 +110,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, p]
     fn.restype = ctypes.c_int
-    fn = lib.dmm_dense_block_strip
-    fn.argtypes = [p] * 8 + [ctypes.c_int] * 8 + [p]
-    fn.restype = ctypes.c_int
+    for name in ("dmm_dense_block_strip", "dmm_dense_block"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 8 + [ctypes.c_int] * 8 + [p]
+        fn.restype = ctypes.c_int
     fn = lib.dmm_phase_head
     fn.argtypes = [p] * 9 + [ctypes.c_int] * 8 + [p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmm_stem_pool
+    fn.argtypes = [p] * 5 + [ctypes.c_int] * 6 + [p]
     fn.restype = ctypes.c_int
 
 

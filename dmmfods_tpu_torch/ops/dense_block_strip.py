@@ -29,7 +29,7 @@ from .fused import _DTYPE_CODES, LaunchCount
 
 K2_LAUNCHES = LaunchCount()
 
-# the kernel's shared-memory plan (csrc/dense_block_strip.cu: kKMax, kGMax)
+# the kernels' shared-memory plan (csrc/dense_layer_tile.cuh: kKMax, kGMax)
 MAX_BOTTLENECK = 128
 MAX_GROWTH = 32
 
@@ -94,6 +94,14 @@ def dense_block_strip(x, folded):
     bfloat16 and ``K <= 128``, ``G <= 32``; the kernels launch on the current
     stream and a failure raises. On the CPU the plain version runs.
     """
+    return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES)
+
+
+def run_block_kernel(x, folded, entry, count):
+    """What K2 and K4 share around their kernels: check the operands, take
+    the plain version on the CPU, else allocate the output buffer, launch the
+    C entry point ``entry`` of the kernel library on the current stream,
+    raise on its error and add one to ``count``."""
     n, c0, growth, k, c_max = _shapes(x, folded)
     if x.device.type == "cpu":
         return dense_block_strip_reference(x, folded)
@@ -117,11 +125,11 @@ def dense_block_strip(x, folded):
     w3 = folded["w3"].to(x.dtype).contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dmm_dense_block_strip(
+        rc = getattr(lib, entry)(
             x.data_ptr(), out.data_ptr(), ops["g1"].data_ptr(), ops["b1"].data_ptr(),
             w1.data_ptr(), ops["g2"].data_ptr(), ops["b2"].data_ptr(), w3.data_ptr(),
             bsz, h, w, c0, n, growth, k, _DTYPE_CODES[x.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"dense_block_strip kernel launch failed: cudaError {rc}")
-    K2_LAUNCHES.add()
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+    count.add()
     return out

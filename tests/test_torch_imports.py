@@ -19,10 +19,11 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 from dmmfods_tpu_torch.models.dense_unet_lidar import DenseUNetLidar, ModelSpec
-spec = ModelSpec(growth_rate=4, block_config=(1, 1), num_init_features=8)
-with torch.no_grad():
-    out = DenseUNetLidar(spec).eval()(torch.rand(1, 32, 32, 3), torch.rand(1, 32, 32, 1))
-assert out.shape == (1, 32, 32, 3), out.shape
+for opt_in in ({}, {"dense_block_impl": "pallas", "stem_pool_strip": "on"}):
+    spec = ModelSpec(growth_rate=8, block_config=(1, 1), num_init_features=8, **opt_in)
+    with torch.no_grad():
+        out = DenseUNetLidar(spec).eval()(torch.rand(1, 64, 64, 3), torch.rand(1, 64, 64, 1))
+    assert out.shape == (1, 64, 64, 3), out.shape
 assert "jax" not in sys.modules and "flax" not in sys.modules, sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
 print(" ".join(sorted(names)))
@@ -35,6 +36,6 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     imported = set(proc.stdout.split())
     for name in ("config", "ops.fused", "ops._build", "ops.dense_block",
-                 "ops.dense_block_strip", "ops.phase_head", "models.dense_unet_lidar",
-                 "models.weights", "serving"):
+                 "ops.dense_block_strip", "ops.phase_head", "ops.stem_pool",
+                 "models.dense_unet_lidar", "models.weights", "serving"):
         assert "dmmfods_tpu_torch." + name in imported, proc.stdout

@@ -320,6 +320,64 @@ def test_config3_logits_match_jax_through_k2_and_k3(tmp_path, monkeypatch):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def test_opt_in_kernels_logits_match_jax(tmp_path, monkeypatch):
+    """The tiny mid-fusion model with both opt-ins, at batch 1 (64x128) and
+    batch 4 (64x96). JAX: ``tpu.stem_pool_strip = "on"`` runs its K6 in
+    interpret mode on the CPU, and ``tpu.dense_block_impl = "pallas"`` keeps
+    its XLA blocks off the TPU. The port: the same keys under ``gpu`` run
+    K6's and K4's wrappers (their plain versions on the CPU). K4 runs on
+    exactly the blocks JAX's ``eligible`` accepts, K6 on both stems at batch
+    1 only. Same atol/rtol 1e-4 as above."""
+    from dmmfods_tpu.ops.pallas.dense_block import eligible as jax_k4_eligible
+
+    jcfg, pcfg = _tiny_configs(tmp_path)
+    jcfg.tpu.stem_pool_strip = "on"
+    jcfg.tpu.dense_block_impl = "pallas"
+    pcfg.gpu.stem_pool_strip = "on"
+    pcfg.gpu.dense_block_impl = "pallas"
+    jmodule = jm.DenseUNetLidar(jm.ModelSpec.from_config(jcfg))
+    rng = np.random.default_rng(17)
+    inputs = {batch: (rng.uniform(0, 1, (batch, 64, w, 3)).astype(np.float32),
+                      rng.uniform(0, 1, (batch, 64, w, 1)).astype(np.float32))
+              for batch, w in ((1, 128), (4, 96))}
+    variables = _randomize(_jax_init(jmodule, *inputs[1], False), 17)
+    apply = jax.jit(lambda v, a, b: jmodule.apply(v, a, b, False))
+
+    pspec = pm.ModelSpec.from_config(pcfg)
+    port = pm.DenseUNetLidar(pspec)
+    port.load_state_dict(state_dict_from_jax(variables, pspec), strict=True)
+    port.eval()
+    calls = {"k4": [], "k6": []}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls[name].append(tuple(args[0].shape))
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(pm, "dense_block", spy("k4", pm.dense_block))
+    monkeypatch.setattr(pm, "stem_pool", spy("k6", pm.stem_pool))
+    for batch, (rgb, lidar) in inputs.items():
+        want = np.asarray(apply(variables, rgb, lidar))
+        calls = {"k4": [], "k6": []}
+        with torch.no_grad():
+            got = port(torch.from_numpy(rgb), torch.from_numpy(lidar)).numpy()
+        h, w = 16, rgb.shape[2] // 4             # block 1's plane
+        blocks, c0 = [], 16
+        for i in range(4):                       # stream 1; then stream 2's block 1
+            blocks.append((batch, h >> i, w >> i, c0))
+            c0 = (c0 + 2 * 8) // 2
+        blocks.append(blocks[0])
+        eligible = sorted(b for b in blocks if jax_k4_eligible(
+            2, b[3], 8, 4, b[1], b[2], dtype_bytes=4, batch=batch))
+        assert len(eligible) == 3
+        assert sorted(calls["k4"]) == eligible
+        assert sorted(calls["k6"]) == ([(1, 64, 128, 1), (1, 64, 128, 3)]
+                                       if batch == 1 else [])
+        assert np.abs(want).max() > 0.1
+        np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_config3_parameter_count_matches_jax(tmp_path):
     """Full-width DenseNet-121 with mid fusion before block 3: the port's
     parameter count is JAX's (shapes only, from ``jax.eval_shape``)."""
