@@ -18,8 +18,12 @@ exit code:
    (80x120 pixels, 256/256 -> 256) in bf16, and at a ragged shape in f32.
 4. K2 (the dense block) against its plain version at the 1280x1920 block
    shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12 layers) in bf16
-   and at a ragged shape in f32; K3 (the head) at the 1280x1920 shape in
-   bf16 and at a ragged shape in f32; K4 (the whole-block kernel) at the
+   and at a ragged shape in f32; K5 (the dense block as independent strips
+   that recompute their halo) at the same two block shapes in bf16, also
+   against K2, and in f32 at a ragged shape whose last strip is short, at a
+   plane that is a single strip and at a block deeper than its strips; K3
+   (the head) at the 1280x1920 shape in bf16 and at a ragged shape in f32;
+   K4 (the whole-block kernel) at the
    four DenseNet-121 block shapes of 128x192 in bf16, at each batch of the
    opt-in path that runs the block as K4 (``K4_PATH_BATCHES``) and at b256,
    and at a ragged and a small-plane shape in f32; K6 (the fused
@@ -44,12 +48,20 @@ exit code:
    default path.
 8. Serve at 1280x1920 batch 1, config 3, with the opt-ins: K1 once, K2 four
    times, K3 once, K6 twice and no K4 per device batch; served against f32.
-9. Time, by CUDA events: the engine's forward with the default config and
-   with the opt-ins at b1/b8/b32/b256 at 128x192 and at b1 at 1280x1920; K1
-   at the b256 shape, K2 at both block shapes, K3 at the 1280x1920 shape,
-   K4 at the four b256 block shapes and K6 at 1280x1920 with 3 channels,
-   each against its plain version in turns; K4 and K6 also against the
-   model's own plain block loop and unfused stem, the code they replace.
+9. Serve at 1280x1920 batch 1, config 3, with ``gpu.dense_block_strip =
+   "on"``: warm-up, the worker, one synchronous request; K1 once, K5 four
+   times, K3 once and no K2, K4 or K6 per device batch; served against the
+   same weights in f32 on the default path. Every earlier phase runs no K5.
+10. Time, by CUDA events: the engine's forward with the default config and
+   with the opt-ins at b1/b8/b32/b256 at 128x192 and at b1 at 1280x1920, and
+   the K5 path's forward against the default one in turns; K1 at the b256
+   shape, K2 and K5 at both block shapes (K5 also against K2), K3 at the
+   1280x1920 shape, K4 at the four b256 block shapes and K6 at 1280x1920
+   with 3 channels, each against its plain version in turns; K4 and K6 also
+   against the model's own plain block loop and unfused stem, the code they
+   replace. Each kernel's bound is computed from the timed inputs: the
+   larger of its operations over the card's peak rate for the inputs' type
+   and the bytes it must move over the memory rate.
 
 Its last two lines are a JSON summary of the kernels and the run's result.
 """
@@ -78,8 +90,8 @@ BOUND_BF16 = 1e-2
 # outputs, absolute): bf16 rounding through ~130 conv layers. Measured
 # 3.2e-3 on an H100 at 128x192 at the seed below.
 BOUND_SERVED_VS_F32 = 2e-2
-# The 1280x1920 path's kernel shapes: K2 per dense block (h, w, c0, layers;
-# growth 32, K 128), K3 (hh, hw, c_up, raw channels, c_mid, classes).
+# The 1280x1920 path's kernel shapes: K2 and K5 per dense block (h, w, c0,
+# layers; growth 32, K 128), K3 (hh, hw, c_up, raw channels, c_mid, classes).
 K2_BLOCKS = {"block1": (320, 480, 64, 6), "block2": (160, 240, 128, 12)}
 K3_FULL = (640, 960, 128, 4, 64, 3)
 # K4 per DenseNet-121 block at 128x192 (h, w, c0, layers), checked at the
@@ -92,16 +104,30 @@ K4_BLOCKS = {"block1": (32, 48, 64, 6), "block2": (16, 24, 128, 12),
 K4_PATH_BATCHES = {"block1": (1, 8, 32), "block2": (1, 8, 32), "block3": (8, 32),
                    "block4": (32,)}
 K6_FULL = (FULL_HEIGHT, FULL_WIDTH, 3)
+# K5's shapes besides the path's (name, h, w, c0, layers, growth, K): its
+# plan cuts 37 rows into strips of 24 and 13, keeps 8 rows as one strip, and
+# cuts 16 rows into strips of 8 under 12 layers
+K5_EXTRA = [("ragged", 37, 53, 24, 3, 8, 32), ("single strip", 8, 24, 16, 3, 8, 32),
+            ("deeper than its strips", 16, 40, 16, 12, 8, 32)]
 # launches per device batch at 128x192 with both opt-ins: K4 on stream 1's
 # blocks 1-2 and stream 2's block 1, block 3 from b8 and block 4 from b32
 # (JAX's sample-group rule); K6 on both stems at b1 only
-OPT_IN_LAUNCHES = {1: dict(K1=1, K2=0, K3=0, K4=3, K6=2),
-                   8: dict(K1=1, K2=0, K3=0, K4=4, K6=0),
-                   32: dict(K1=1, K2=0, K3=0, K4=5, K6=0)}
-# K2's and K4's plain version, dense_block_strip_reference
+OPT_IN_LAUNCHES = {1: dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=2),
+                   8: dict(K1=1, K2=0, K3=0, K4=4, K5=0, K6=0),
+                   32: dict(K1=1, K2=0, K3=0, K4=5, K5=0, K6=0)}
+# K2's, K4's and K5's plain version, dense_block_strip_reference
 PLAIN_BLOCK = "cuDNN bf16 convs, BN in f32 over each concat prefix"
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
-                "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel")
+                "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
+                "dense_block_recompute_kernel")
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
+# rate for the type of a kernel's inputs, and the memory rate. A kernel's
+# bound is the larger of its operations over the first and the bytes it must
+# move (each input read once, each output written once) over the second.
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+# no single PyTorch call computes any of the six kernels' functions
+LIBRARY_MS = None
 
 
 def _card_line() -> str:
@@ -113,6 +139,34 @@ def _card_line() -> str:
 def _median(values):
     return sorted(values)[len(values) // 2]
 
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by) of work of ``flops`` operations on inputs of
+    ``dtype`` that must move ``nbytes`` bytes."""
+    ops_ms = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _block_flops(batch, h, w, c0, layers, growth, k):
+    """A dense block's multiply-adds, twice: each layer's 1x1 over its width
+    and 3x3 over K, at every pixel (a recomputed halo is not work)."""
+    return 2 * batch * h * w * sum((c0 + l * growth) * k + 9 * k * growth
+                                   for l in range(layers))
+
+
+def _block_bound(x, folded):
+    """K2's, K4's and K5's bound on ``x`` and ``folded``: the input, the
+    stacks and the (B, H, W, cmax) output."""
+    batch, h, w, c0 = x.shape
+    layers, _, _, k, growth = folded["w3"].shape
+    out_bytes = batch * h * w * (c0 + layers * growth) * x.element_size()
+    return _bound(_block_flops(batch, h, w, c0, layers, growth, k),
+                  _nbytes(x, *folded.values()) + out_bytes, x.dtype)
 
 def _median_ms(fn, iters, warmup=3):
     import torch
@@ -181,6 +235,15 @@ def _k1_error(out, a, b, params):
     return (out.float() - ref).abs().max().item(), ref.abs().max().item()
 
 
+def _k5_recompute(h, layers, rows):
+    """The rows K5's layers compute on strips of ``rows`` rows, over the
+    block's ``h * L``: the price of the recomputed halo (layer ``l`` of a
+    strip also computes the ``L - 1 - l`` rows a side later layers read)."""
+    done = sum(min(r0 + rows + e, h) - max(r0 - e, 0)
+               for r0 in range(0, h, rows) for e in range(layers))
+    return done / (h * layers)
+
+
 def _k2_inputs(gen, h, w, c0, layers, growth, k, dtype, device, batch=1):
     """Input and folded stacks of a random dense block (K2, K4). BN biases
     are wide enough that some folded BN2 bias is positive: a pixel outside
@@ -246,7 +309,7 @@ def _launch_counts():
 
     return {"K1": fused.K1_LAUNCHES, "K2": dense_block_strip.K2_LAUNCHES,
             "K3": phase_head.K3_LAUNCHES, "K4": dense_block.K4_LAUNCHES,
-            "K6": stem_pool.K6_LAUNCHES}
+            "K5": dense_block_strip.K5_LAUNCHES, "K6": stem_pool.K6_LAUNCHES}
 
 
 def _reset_counts():
@@ -287,9 +350,10 @@ def _served_vs_f32(bundle, rgb, lidar, served, device, label):
     from dmmfods_tpu_torch.models.dense_unet_lidar import DenseUNetLidar, ModelSpec
 
     # the default dispatch in f32: the opt-in kernels are held against the
-    # plain path
+    # default path
     ref_model = DenseUNetLidar(dataclasses.replace(
         bundle.spec, dtype=torch.float32, dense_block_impl=ModelSpec.dense_block_impl,
+        dense_block_strip=ModelSpec.dense_block_strip,
         stem_pool_strip=ModelSpec.stem_pool_strip))
     ref_model.load_state_dict(bundle.module.state_dict())
     ref_model = ref_model.to(device, memory_format=torch.channels_last).eval()
@@ -394,7 +458,7 @@ def main() -> int:
 
     # 3. K1 against its plain version ----------------------------------------
     gen = torch.Generator().manual_seed(SEED)
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
     cases = [(batch, 16, 24, 128, 128, 128, dt)
              for dt in (torch.bfloat16, torch.float32) for batch in (8, 256)]
     cases.append((1, 80, 120, 256, 256, 256, torch.bfloat16))   # the 1280x1920 fuse
@@ -422,6 +486,23 @@ def main() -> int:
         ref = dense_block_strip.dense_block_strip_reference(x.float(), folded)
         worst["K2"] = max(worst["K2"], _check(
             "K2", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}", out, ref))
+        if name in K2_BLOCKS:      # K5 on the same inputs, against both
+            out5 = dense_block_strip.dense_block_strip_recompute(x, folded)
+            torch.cuda.synchronize()
+            worst["K5"] = max(worst["K5"], _check(
+                "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}", out5, ref))
+            print(f"K5 vs K2 {name}: max abs diff "
+                  f"{(out5.float() - out.float()).abs().max().item():.3e}")
+    for name, h, w, c0, layers, growth, k in K5_EXTRA:
+        x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, torch.float32, device)
+        out = dense_block_strip.dense_block_strip_recompute(x, folded)
+        torch.cuda.synchronize()
+        ref = dense_block_strip.dense_block_strip_reference(x, folded)
+        rows, strips, blocks = dense_block_strip.plan_strips(
+            h, w, layers, torch.cuda.get_device_properties(device).multi_processor_count)
+        worst["K5"] = max(worst["K5"], _check(
+            "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}, {strips} "
+            f"strips of {rows} rows, {blocks} blocks", out, ref))
     for name, shape, dt in (("1280x1920", K3_FULL, torch.bfloat16),
                             ("ragged", (13, 21, 40, 3, 20, 3), torch.float32)):
         x_lo, raw, consts = _k3_inputs(gen, *shape, dt, device)
@@ -454,13 +535,14 @@ def main() -> int:
         ref = stem_pool.stem_pool_reference(x.float(), w7, gamma, beta)
         worst["K6"] = max(worst["K6"], _check(
             "K6", f"x {tuple(x.shape)} F={shape[-1]}", out, ref))
-    del x, folded, x_lo, raw, consts, w7, out, ref
+    del x, folded, x_lo, raw, consts, w7, out, out5, ref
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
-        cfg, cfg3, cfg_opt, cfg3_opt = (get_config(host) for _ in range(4))
-    for c in (cfg3, cfg3_opt):
+        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5 = (get_config(host) for _ in range(5))
+    for c in (cfg3, cfg3_opt, cfg3_k5):
         c.model.concat_before_block_num = 3
+    cfg3_k5.gpu.dense_block_strip = "on"
     for c in (cfg_opt, cfg3_opt):
         c.gpu.dense_block_impl = "pallas"
         c.gpu.stem_pool_strip = "on"
@@ -497,7 +579,7 @@ def main() -> int:
     print(f"served {len(requests)} requests ({sum(r[0].shape[0] for r in requests)} "
           f"frames) in {batches} device batches ({warm_batches} warm-up), "
           f"{serve_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches, dict(K1=1, K2=0, K3=0, K4=0, K6=0))
+    _per_batch(path_counts[-1], batches, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
 
     a, b, out = captured[warm_batches]   # the first batch the worker served
     with torch.inference_mode():
@@ -534,7 +616,7 @@ def main() -> int:
     _check_heat_maps(requests3, results3, FULL_HEIGHT, FULL_WIDTH)
     print(f"served {len(requests3)} requests of 1 frame at {FULL_HEIGHT}x{FULL_WIDTH} in "
           f"{batches3} device batches (1 warm-up), {serve3_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches3, dict(K1=1, K2=4, K3=1, K4=0, K6=0))
+    _per_batch(path_counts[-1], batches3, dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=0))
     _served_vs_f32(bundle3, *requests3[-1], results3[-1], device,
                    f"{FULL_HEIGHT}x{FULL_WIDTH}")
     torch.cuda.empty_cache()
@@ -561,7 +643,7 @@ def main() -> int:
     served = engine_opt.device_batches - before
     _check_heat_maps(requests[:3], results_opt, HEIGHT, WIDTH)
     # the worker coalesces, so the buckets of its batches are not known here
-    if not (counts["K1"] == served and counts["K2"] == counts["K3"] == 0
+    if not (counts["K1"] == served and counts["K2"] == counts["K3"] == counts["K5"] == 0
             and 3 * served <= counts["K4"] <= 5 * served
             and counts["K6"] % 2 == 0 and counts["K6"] <= 2 * served):
         raise AssertionError(f"worker at {HEIGHT}x{WIDTH} with the opt-ins: launches "
@@ -582,12 +664,30 @@ def main() -> int:
     _check_heat_maps(requests3, results3_opt, FULL_HEIGHT, FULL_WIDTH)
     print(f"opt-in {FULL_HEIGHT}x{FULL_WIDTH}: served {len(requests3)} requests in "
           f"{batches3_opt} device batches, {serve3_opt_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches3_opt, dict(K1=1, K2=4, K3=1, K4=0, K6=2))
+    _per_batch(path_counts[-1], batches3_opt, dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=2))
     _served_vs_f32(bundle3_opt, *requests3[-1], results3_opt[-1], device,
                    f"{FULL_HEIGHT}x{FULL_WIDTH} opt-ins (K6)")
     torch.cuda.empty_cache()
 
-    # 9. time ------------------------------------------------------------------
+    # 9. serve at 1280x1920, batch 1 (config 3), on the K5 path -----------------
+    bundle3_k5 = densenet121_u_lidar(config=cfg3_k5, device=device, seed=SEED)
+    print(f"model: densenet121_u_lidar, {FULL_HEIGHT}x{FULL_WIDTH}, config 3, "
+          f"dense_block_strip {bundle3_k5.spec.dense_block_strip!r}")
+    engine3_k5 = InferenceEngine(bundle3_k5, buckets=(1,), height=FULL_HEIGHT,
+                                 width=FULL_WIDTH)
+    _reset_counts()
+    results3_k5, serve3_k5_s = _serve(engine3_k5, requests3[:-1], requests3[-1])
+    path_counts.append(_counts())
+    batches3_k5 = engine3_k5.device_batches
+    _check_heat_maps(requests3, results3_k5, FULL_HEIGHT, FULL_WIDTH)
+    print(f"K5 path {FULL_HEIGHT}x{FULL_WIDTH}: served {len(requests3)} requests in "
+          f"{batches3_k5} device batches, {serve3_k5_s:.2f} s wall with warm-up")
+    _per_batch(path_counts[-1], batches3_k5, dict(K1=1, K2=0, K3=1, K4=0, K5=4, K6=0))
+    _served_vs_f32(bundle3_k5, *requests3[-1], results3_k5[-1], device,
+                   f"{FULL_HEIGHT}x{FULL_WIDTH} K5 path")
+    torch.cuda.empty_cache()
+
+    # 10. time -----------------------------------------------------------------
     tag = f"[{card}]"
     for label, eng in (("default", engine), ("opt-in", engine_opt)):
         for batch in (1, 8, 32, 256):
@@ -603,6 +703,11 @@ def main() -> int:
         print(f"{tag} engine forward {label} b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid "
               f"fusion before block 3): median {ms:.4f} ms, {1e3 / ms:.2f} frames/s "
               f"(15 iterations)")
+    k5_path_ms, default_path_ms = _in_turns(lambda: engine3_k5.forward(rgb, lidar),
+                                            lambda: engine3.forward(rgb, lidar), iters=8)
+    print(f"{tag} engine forward K5 path b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (config 3, "
+          f"dense_block_strip 'on'): median {k5_path_ms:.4f} ms; default path (K2) "
+          f"{default_path_ms:.4f} ms (16 iterations each, in turns)")
     del rgb, lidar
     torch.cuda.empty_cache()
 
@@ -610,28 +715,59 @@ def main() -> int:
     k1_ms, k1_plain_ms = _in_turns(
         lambda: fused.concat_bn_relu_conv1x1(a, b, **params),
         lambda: fused.concat_bn_relu_conv1x1_reference(a, b, **params), iters=25)
+    rows = a.numel() // a.shape[-1]
+    k1_bound = _bound(2 * rows * (a.shape[-1] + b.shape[-1]) * params["weight"].shape[0],
+                      _nbytes(a, b, *params.values())
+                      + rows * params["weight"].shape[0] * a.element_size(), a.dtype)
     print(f"{tag} K1 b256 (98304 rows, 128+128->128, bf16): median {k1_ms:.4f} ms; "
-          f"plain version {k1_plain_ms:.4f} ms (50 iterations each, in turns)")
-    k2_ms = {}
+          f"plain version {k1_plain_ms:.4f} ms (50 iterations each, in turns); bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    k2_ms, k5_ms, block_bound = {}, {}, {}
     for name, (h, w, c0, layers) in K2_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device)
+        block_bound[name] = _block_bound(x, folded)
         k2_ms[name] = _in_turns(
             lambda: dense_block_strip.dense_block_strip(x, folded),
             lambda: dense_block_strip.dense_block_strip_reference(x, folded), iters=10)
         print(f"{tag} K2 {name} (1, {h}, {w}, {c0}) L={layers} bf16: median "
               f"{k2_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
-              f"{k2_ms[name][1]:.4f} ms (20 iterations each, in turns)")
+              f"{k2_ms[name][1]:.4f} ms (20 iterations each, in turns); bound "
+              f"{block_bound[name][0]:.4f} ms ({block_bound[name][1]})")
+        k5_ms[name] = _in_turns(
+            lambda: dense_block_strip.dense_block_strip_recompute(x, folded),
+            lambda: dense_block_strip.dense_block_strip_reference(x, folded),
+            lambda: dense_block_strip.dense_block_strip(x, folded), iters=10)
+        rows5, strips5, blocks5 = dense_block_strip.plan_strips(
+            h, w, layers, torch.cuda.get_device_properties(device).multi_processor_count)
+        print(f"{tag} K5 {name} (1, {h}, {w}, {c0}) L={layers} bf16, {strips5} strips of "
+              f"{rows5} rows, {blocks5} blocks, work "
+              f"{_k5_recompute(h, layers, rows5):.4f}x the block's rows: median "
+              f"{k5_ms[name][0]:.4f} ms; plain "
+              f"version {k5_ms[name][1]:.4f} ms; K2 {k5_ms[name][2]:.4f} ms (20 "
+              f"iterations each, in turns); bound {block_bound[name][0]:.4f} ms")
     x_lo, raw, consts = _k3_inputs(gen, *K3_FULL, torch.bfloat16, device)
     k3_ms, k3_plain_ms = _in_turns(
         lambda: phase_head.phase_head(x_lo, raw, **consts),
         lambda: phase_head.phase_head_reference(x_lo, raw, **consts), iters=10)
+    # per low-res pixel, for its 4 full-res pixels: refine0's upsampled part
+    # as a 2x2 window over x_lo (the nearest upsample's collapse), its raw
+    # part as a 3x3 over rc, and refine1's 5x5; the phase-space weights'
+    # structural zeros (7 of 16 raw positions a phase) are not work
+    _, hh, hw, c_up = x_lo.shape
+    rc, c_mid, n_cls = raw.shape[-1], consts["w0"].shape[0], consts["w1"].shape[0]
+    k3_bound = _bound(
+        2 * hh * hw * 4 * (4 * c_up * c_mid + 9 * rc * c_mid + 25 * c_mid * n_cls),
+        _nbytes(x_lo, raw, *consts.values()) + 4 * hh * hw * n_cls * x_lo.element_size(),
+        x_lo.dtype)
     print(f"{tag} K3 {FULL_HEIGHT}x{FULL_WIDTH} (x_lo {tuple(x_lo.shape)}, raw "
           f"{tuple(raw.shape)}) bf16: median {k3_ms:.4f} ms; plain version (cuDNN, "
-          f"bf16) {k3_plain_ms:.4f} ms (20 iterations each, in turns)")
-    k4_ms = {}
+          f"bf16) {k3_plain_ms:.4f} ms (20 iterations each, in turns); bound "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    k4_ms, k4_bound = {}, {}
     for name, (h, w, c0, layers) in K4_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device,
                                batch=256)
+        k4_bound[name] = _block_bound(x, folded)
         # the model's own plain loop, which K4 replaces on the opt-in path
         block = DenseBlock(layers, c0, 4, 32, 0.0).to(device).eval()
         x_nchw = x.permute(0, 3, 1, 2)          # channels_last, as the model holds it
@@ -643,7 +779,8 @@ def main() -> int:
         print(f"{tag} K4 {name} (256, {h}, {w}, {c0}) L={layers} bf16: median "
               f"{k4_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
               f"{k4_ms[name][1]:.4f} ms; the model's plain loop (cuDNN bf16 convs, BN "
-              f"in bf16) {k4_ms[name][2]:.4f} ms (10 iterations each, in turns)")
+              f"in bf16) {k4_ms[name][2]:.4f} ms (10 iterations each, in turns); bound "
+              f"{k4_bound[name][0]:.4f} ms ({k4_bound[name][1]})")
     x, w7, gamma, beta = _k6_inputs(gen, 1, *K6_FULL, 64, torch.bfloat16, device)
     # the model's own unfused stem (conv0, norm0, ReLU, pool0), which K6 replaces
     stem = Encoder(ModelSpec(), K6_FULL[2], up_to_block=1).to(device).eval()
@@ -653,10 +790,17 @@ def main() -> int:
             lambda: stem_pool.stem_pool(x, w7, gamma, beta),
             lambda: stem_pool.stem_pool_reference(x, w7, gamma, beta),
             lambda: stem(x_nchw), iters=10)
+    # conv0's 7x7 at stride 2; the pool's comparisons are not counted
+    batch, h, w, c = x.shape
+    f = w7.shape[-1]
+    k6_bound = _bound(2 * batch * (h // 2) * (w // 2) * 49 * c * f,
+                      _nbytes(x, w7, gamma, beta)
+                      + batch * (h // 4) * (w // 4) * f * x.element_size(), x.dtype)
     print(f"{tag} K6 {FULL_HEIGHT}x{FULL_WIDTH} x {tuple(x.shape)} F=64 bf16: median "
           f"{k6_ms:.4f} ms; plain version (cuDNN conv0 in f32 from bf16 inputs, BN, "
           f"ReLU, max pool in f32) {k6_plain_ms:.4f} ms; the model's unfused stem "
-          f"(cuDNN bf16) {k6_model_ms:.4f} ms (20 iterations each, in turns)")
+          f"(cuDNN bf16) {k6_model_ms:.4f} ms (20 iterations each, in turns); bound "
+          f"{k6_bound[0]:.4f} ms ({k6_bound[1]})")
 
     launches = {name: sum(c[name] for c in path_counts) for name in worst}
     print(json.dumps({"kernels": [
@@ -664,31 +808,50 @@ def main() -> int:
          "source": "dmmfods_tpu_torch/csrc/concat_bn_relu_conv1x1.cu",
          "replaces": "dmmfods_tpu/ops/fused.py:618",
          "launches": launches["K1"], "max_abs_err": worst["K1"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": LIBRARY_MS},
         {"name": "dense_block_strip", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block_strip.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block_strip.py:341",
          "launches": launches["K2"], "max_abs_err": worst["K2"],
          "ms": k2_ms["block1"][0], "plain_ms": k2_ms["block1"][1],
-         "ms_block2": k2_ms["block2"][0], "plain_ms_block2": k2_ms["block2"][1]},
+         "bound_ms": block_bound["block1"][0], "bound_by": block_bound["block1"][1],
+         "library_ms": LIBRARY_MS,
+         "ms_block2": k2_ms["block2"][0], "plain_ms_block2": k2_ms["block2"][1],
+         "bound_ms_block2": block_bound["block2"][0]},
         {"name": "phase_head", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/phase_head.cu",
          "replaces": "dmmfods_tpu/ops/pallas/phase_head.py:246",
          "launches": launches["K3"], "max_abs_err": worst["K3"],
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": LIBRARY_MS},
         {"name": "dense_block", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block.py:262",
          "launches": launches["K4"], "max_abs_err": worst["K4"],
          "ms": k4_ms["block1"][0], "plain_ms": k4_ms["block1"][1],
-         "model_loop_ms": k4_ms["block1"][2],
+         "bound_ms": k4_bound["block1"][0], "bound_by": k4_bound["block1"][1],
+         "library_ms": LIBRARY_MS, "model_loop_ms": k4_ms["block1"][2],
          **{f"{key}_{name}": k4_ms[name][i] for name in ("block2", "block3", "block4")
-            for i, key in enumerate(("ms", "plain_ms", "model_loop_ms"))}},
+            for i, key in enumerate(("ms", "plain_ms", "model_loop_ms"))},
+         **{f"bound_ms_{name}": k4_bound[name][0]
+            for name in ("block2", "block3", "block4")}},
         {"name": "stem_pool", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/stem_pool.cu",
          "replaces": "dmmfods_tpu/ops/pallas/stem_pool.py:252",
          "launches": launches["K6"], "max_abs_err": worst["K6"],
-         "ms": k6_ms, "plain_ms": k6_plain_ms, "model_stem_ms": k6_model_ms},
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": LIBRARY_MS, "model_stem_ms": k6_model_ms},
+        {"name": "dense_block_strip_recompute", "route": "cuda",
+         "source": "dmmfods_tpu_torch/csrc/dense_block_recompute.cu",
+         "replaces": "dmmfods_tpu/ops/pallas/dense_block_strip.py:421",
+         "launches": launches["K5"], "max_abs_err": worst["K5"],
+         "ms": k5_ms["block1"][0], "plain_ms": k5_ms["block1"][1],
+         "bound_ms": block_bound["block1"][0], "bound_by": block_bound["block1"][1],
+         "library_ms": LIBRARY_MS, "k2_ms": k5_ms["block1"][2],
+         "ms_block2": k5_ms["block2"][0], "plain_ms_block2": k5_ms["block2"][1],
+         "bound_ms_block2": block_bound["block2"][0], "k2_ms_block2": k5_ms["block2"][2],
+         "path_ms": k5_path_ms, "default_path_ms": default_path_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,10 +93,11 @@ dense_block_kernel(const T* __restrict__ x, T* out, const float* __restrict__ g1
 
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles = tiles_x * ((H + TH - 1) / TH);
+  const ImageFrame<T> frame{img, H, W, cmax};
   for (int l = 0; l < L; ++l) {
     for (int t = rank; t < tiles; t += cs) {
       dense_layer_tile<T, TH, TW>(
-          smem_raw, img, H, W, cmax, c0 + l * G, K, G, (t / tiles_x) * TH,
+          smem_raw, frame, c0 + l * G, K, G, (t / tiles_x) * TH,
           (t % tiles_x) * TW, g1 + static_cast<int64_t>(l) * cmax,
           b1 + static_cast<int64_t>(l) * cmax, w1 + static_cast<int64_t>(l) * cmax * K,
           g2 + static_cast<int64_t>(l) * K, b2 + static_cast<int64_t>(l) * K,

@@ -71,9 +71,10 @@ dense_layer_kernel(T* __restrict__ buf, const float* __restrict__ g1,
                    const T* __restrict__ w3, int H, int W, int cmax, int width,
                    int K, int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  dense_layer_tile<T, kTH, kTW>(
-      smem_raw, buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H, W, cmax,
-      width, K, G, blockIdx.y * kTH, blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
+  const ImageFrame<T> frame{buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H, W,
+                            cmax};
+  dense_layer_tile<T, kTH, kTW>(smem_raw, frame, width, K, G, blockIdx.y * kTH,
+                                blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
 }
 
 template <typename T>

@@ -1,18 +1,23 @@
 // One dense layer of a DenseNet block over one TH x TW output tile: the body
 // shared by K2 (csrc/dense_block_strip.cu: one tile per block, one launch per
-// layer) and K4 (csrc/dense_block.cu: one launch per block, each block
-// looping over the layers and its tiles). With BN folded into per-channel
-// (gamma, beta) and width = c0 + l * G it computes
+// layer), K4 (csrc/dense_block.cu: one launch per block, each block looping
+// over the layers and its tiles) and K5 (csrc/dense_block_recompute.cu: the
+// same over a strip's window). With BN folded into per-channel (gamma, beta)
+// and width = c0 + l * G it computes
 //
 //   act = ReLU(img[..., :width] * g1 + b1)            rounded to T
 //   y1  = act @ w1                                    f32 accumulation
-//   y2  = ReLU(y1 * g2 + b2), zero outside the image  rounded to T
+//   y2  = ReLU(y1 * g2 + b2), zero outside the frame  rounded to T
 //   img[..., width:width + G] = conv3x3(y2, w3)        f32 accumulation
 //
-// for the tile's output pixels. The zero outside the image is the 3x3's
-// zero padding; it has to sit after BN2, whose bias makes a zeroed pixel
-// non-zero. Only channels [0, width) of img are read: the slabs above are
-// unwritten (an uninitialised buffer may hold NaN, and 0 * NaN is NaN).
+// for the tile's output pixels. A Frame says where the layer's pixels are
+// and which it may touch: ImageFrame the whole image of one buffer (K2, K4),
+// K5's StripFrame a strip's window, whose own rows lie in the output and
+// whose halo rows lie in private scratch. A pixel outside the frame reads as
+// the 3x3's zero padding and is never written. The zero has to sit after
+// BN2, whose bias makes a zeroed pixel non-zero. Only channels [0, width) of
+// a pixel are read: the slabs above are unwritten (an uninitialised buffer
+// may hold NaN, and 0 * NaN is NaN).
 //
 // 256 threads:
 //   1. stage the tile's (TH+2) x (TW+2) halo of the prefix 32 channels at a
@@ -39,6 +44,20 @@ constexpr int kKS = kKMax + 2;               // y2 row stride
 constexpr int kGMax = 32;                    // growth rate G
 constexpr int kCK = 32;                      // prefix channels staged per step
 
+// The whole H x W image of cmax channels at img, NHWC.
+template <typename T>
+struct ImageFrame {
+  T* img;
+  int H, W, cmax;
+  __device__ __forceinline__ bool inside(int y, int x) const {
+    return y >= 0 && y < H && x >= 0 && x < W;
+  }
+  // channel 0 of pixel (y, x)
+  __device__ __forceinline__ T* at(int y, int x) const {
+    return img + (static_cast<int64_t>(y) * W + x) * cmax;
+  }
+};
+
 template <int TH, int TW>
 struct LayerTile {
   static constexpr int kHW = TW + 2;                  // halo columns
@@ -60,12 +79,13 @@ struct LayerTile {
 };
 
 // The layer over the tile whose top-left output pixel is (y0, x0) of the
-// (H, W, cmax) NHWC image `img`. Layer-sliced operands: g1, b1 (cmax) and w1
-// (cmax, K) from the layer's row, g2, b2 (K), w3 (3, 3, K, G). Ends with a
-// barrier, so a block may call it again at once for another tile.
-template <typename T, int TH, int TW>
+// pixels of `frame` (a Frame as above: inside(y, x) and at(y, x)). Layer-sliced
+// operands: g1, b1 (cmax) and w1 (cmax, K) from the layer's row, g2, b2 (K),
+// w3 (3, 3, K, G). Ends with a barrier, so a block may call it again at once
+// for another tile.
+template <typename T, int TH, int TW, typename Frame>
 __device__ __forceinline__ void dense_layer_tile(
-    unsigned char* smem_raw, T* img, int H, int W, int cmax, int width, int K, int G,
+    unsigned char* smem_raw, const Frame& frame, int width, int K, int G,
     int y0, int x0, const float* __restrict__ g1, const float* __restrict__ b1,
     const T* __restrict__ w1, const float* __restrict__ g2,
     const float* __restrict__ b2, const T* __restrict__ w3) {
@@ -101,8 +121,8 @@ __device__ __forceinline__ void dense_layer_tile(
       if (p < kHalo && c < width) {
         const int gy = y0 - 1 + p / kHW;
         const int gx = x0 - 1 + p % kHW;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-          const float xv = to_f32(img[(static_cast<int64_t>(gy) * W + gx) * cmax + c]);
+        if (frame.inside(gy, gx)) {
+          const float xv = to_f32(frame.at(gy, gx)[c]);
           v = round_to<T>(fmaxf(fmaf(xv, g1[c], b1[c]), 0.f));
         }
       }
@@ -137,7 +157,7 @@ __device__ __forceinline__ void dense_layer_tile(
     if (p >= kHalo) continue;
     const int gy = y0 - 1 + p / kHW;
     const int gx = x0 - 1 + p % kHW;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const bool inside = frame.inside(gy, gx);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int k = tk + 16 * j;
@@ -191,8 +211,8 @@ __device__ __forceinline__ void dense_layer_tile(
     const int o = tq + 32 * i;
     const int gy = y0 + o / TW;
     const int gx = x0 + o % TW;
-    if (o >= Tile::kOut || gy >= H || gx >= W) continue;
-    T* dst = img + (static_cast<int64_t>(gy) * W + gx) * cmax + width;
+    if (o >= Tile::kOut || !frame.inside(gy, gx)) continue;
+    T* dst = frame.at(gy, gx) + width;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int g = tg + 8 * j;

@@ -16,8 +16,11 @@ computes the plain form below. In eval mode four modules hand their work to
 a hand-written CUDA kernel (the plain version on a CPU tensor):
 
 * ``ConcatFuse``: K1, :func:`..ops.fused.concat_bn_relu_conv1x1`, always;
-* ``DenseBlock``: K2, :func:`..ops.dense_block_strip.dense_block_strip`, at
-  batch 1 on planes of at least ``STRIP_MIN_PIXELS`` pixels; else, where
+* ``DenseBlock``: at batch 1 on planes of at least ``STRIP_MIN_PIXELS``
+  pixels that JAX's strip gate takes (``ops.dense_block_strip.eligible``),
+  K2, :func:`..ops.dense_block_strip.dense_block_strip`, or with
+  ``gpu.dense_block_strip = "on"`` K5,
+  :func:`..ops.dense_block_strip.dense_block_strip_recompute`; else, where
   ``gpu.dense_block_impl`` names ``pallas`` for the block, K4,
   :func:`..ops.dense_block.dense_block`, on the shapes JAX's sample-group
   rule takes (``ops.dense_block.eligible``);
@@ -27,15 +30,16 @@ a hand-written CUDA kernel (the plain version on a CPU tensor):
 * ``Head``: K3, :func:`..ops.phase_head.phase_head`, at batch 1 on output
   planes of more than ``HEAD_KERNEL_MIN_PIXELS`` pixels.
 
-The K4 and K6 gates are JAX's own decisions, its TPU cost models included,
-kept only so that both packages run those kernels on the same shapes; they
-say nothing about the card, and a kernel with no JAX gate to match needs
-no such model.
+The strip, K4 and K6 gates are JAX's own decisions, its TPU cost models
+included, kept only so that both packages run those kernels on the same
+shapes; they say nothing about the card, and a kernel with no JAX gate to
+match needs no such model.
 
 With the default config, at the 128x192 working resolution only K1
-engages; at 1280x1920 batch 1 the blocks 1 and 2 of both streams and the
-head do too. The opt-ins add K4 on the 128x192 blocks (DenseNet-121: three
-block calls at b1, four at b8, five from b32) and K6 on both stems at b1.
+engages; at 1280x1920 batch 1 the blocks 1 and 2 of both streams (K2) and
+the head do too. The opt-ins add K4 on the 128x192 blocks (DenseNet-121:
+three block calls at b1, four at b8, five from b32), K6 on both stems at
+b1, and K5 in place of K2 at 1280x1920.
 
 Layout: :meth:`DenseUNetLidar.forward` takes and returns NHWC tensors, like
 the JAX model. Inside, tensors are NCHW in shape and ``channels_last`` in
@@ -62,7 +66,8 @@ from torch import nn
 
 from ..ops.dense_block import dense_block, fold_block_params
 from ..ops.dense_block import eligible as dense_block_eligible
-from ..ops.dense_block_strip import dense_block_strip
+from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
+from ..ops.dense_block_strip import eligible as strip_eligible
 from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
 from ..ops.phase_head import phase_head
 from ..ops.stem_pool import eligible as stem_pool_eligible
@@ -72,13 +77,17 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the JAX model's dense-block lowerings: 'pallas' selects K4, the XLA forms
 # the plain loop
 _BLOCK_IMPLS = ("concat", "buffer", "vjp", "pallas")
+# the JAX model's dense_block_strip values: 'auto' and 'carry' select K2,
+# 'on' K5, 'off' neither
+_STRIP_MODES = ("auto", "carry", "on", "off")
 # the JAX model's stem_pool_strip values: 'on' selects K6; 'force', JAX's
 # override of its TPU quarantine, means 'on' here; 'auto' and 'off' do not
 _STEM_POOL_MODES = ("auto", "off", "on", "force")
 
 # The kernels' gates, read at each call. A dense block of a batch-1 plane of
-# at least this many pixels runs as K2 (``ModelSpec.rows_min_pixels`` of the
-# JAX model: blocks 1 and 2 at 1280x1920, not block 3 at 80x120).
+# at least this many pixels runs as K2 or K5 where JAX's strip gate takes it
+# (``ModelSpec.rows_min_pixels`` of the JAX model: blocks 1 and 2 at
+# 1280x1920, not block 3 at 80x120).
 STRIP_MIN_PIXELS = 16384
 # The head of a batch-1 output plane of more than this many pixels runs as K3
 # (``dense_unet_lidar.py`` ``Head``'s "big" plane of the JAX model).
@@ -96,8 +105,9 @@ class ModelSpec:
 
     Field defaults equal the config defaults (DenseNet-121, mid fusion).
     ``num_layers_before_blocks`` and ``memory_efficient`` of the config
-    change nothing in the math and are not read. ``dense_block_impl`` and
-    ``stem_pool_strip`` select K4 and K6 (``config.py``)."""
+    change nothing in the math and are not read. ``dense_block_impl``,
+    ``dense_block_strip`` and ``stem_pool_strip`` select K4, K2 or K5, and
+    K6 (``config.py``)."""
 
     growth_rate: int = 32
     block_config: Tuple[int, ...] = (6, 12, 24, 16)
@@ -110,6 +120,7 @@ class ModelSpec:
     num_classes: int = 3
     dtype: Any = torch.float32
     dense_block_impl: str = "concat,concat,buffer,buffer"
+    dense_block_strip: str = "auto"
     stem_pool_strip: str = "auto"
 
     def __post_init__(self):
@@ -117,6 +128,9 @@ class ModelSpec:
             if self.impl_for_block(i) not in _BLOCK_IMPLS:
                 raise ValueError(f"dense_block_impl entries must be one of "
                                  f"{_BLOCK_IMPLS}, got {self.dense_block_impl!r}")
+        if self.dense_block_strip not in _STRIP_MODES:
+            raise ValueError(f"dense_block_strip must be one of {_STRIP_MODES}, "
+                             f"got {self.dense_block_strip!r}")
         if self.stem_pool_strip not in _STEM_POOL_MODES:
             raise ValueError(f"stem_pool_strip must be one of {_STEM_POOL_MODES}, "
                              f"got {self.stem_pool_strip!r}")
@@ -150,6 +164,8 @@ class ModelSpec:
             kwargs["dtype"] = _COMPUTE_DTYPES[name]
             kwargs["dense_block_impl"] = str(gpu.get(
                 "dense_block_impl", cls.dense_block_impl))
+            kwargs["dense_block_strip"] = str(gpu.get(
+                "dense_block_strip", cls.dense_block_strip))
             kwargs["stem_pool_strip"] = str(gpu.get(
                 "stem_pool_strip", cls.stem_pool_strip))
         kwargs.update(overrides)
@@ -249,22 +265,25 @@ class DenseLayer(nn.Module):
 class DenseBlock(nn.Module):
     """Concatenating dense block (torchvision ``_DenseBlock``): each layer
     reads the concat of the block input and every earlier layer's output.
-    ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``."""
+    ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``,
+    ``strip`` is ``ModelSpec.dense_block_strip``."""
 
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
-                 drop_rate, impl="concat"):
+                 drop_rate, impl="concat", strip="auto"):
         super().__init__()
         self.impl = impl
+        self.strip = strip
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 num_input_features + i * growth_rate, growth_rate, bn_size,
                 drop_rate))
 
     def forward(self, x):
-        """The JAX block's order: the K2 strip gate, then K4, else the loop."""
+        """The JAX block's order: the strip gate (K5 for ``on``, else K2),
+        then K4, else the loop."""
         if self._strip_eligible(x):
-            out = dense_block_strip(x.permute(0, 2, 3, 1).contiguous(),
-                                    fold_block_params(self))
+            run = dense_block_strip_recompute if self.strip == "on" else dense_block_strip
+            out = run(x.permute(0, 2, 3, 1).contiguous(), fold_block_params(self))
             return out.permute(0, 3, 1, 2)
         if self._k4_eligible(x):
             out = dense_block(x.permute(0, 2, 3, 1).contiguous(),
@@ -276,10 +295,21 @@ class DenseBlock(nn.Module):
         return features
 
     def _strip_eligible(self, x) -> bool:
-        """Eval, batch 1, a big plane and no dropout: the whole block as K2."""
-        return (not self.training and x.shape[0] == 1
-                and x.shape[2] * x.shape[3] >= STRIP_MIN_PIXELS
-                and all(layer.drop_rate == 0 for layer in self.children()))
+        """JAX's ``DenseBlock._strip_eligible`` with the card in the TPU's
+        place: eval, ``strip`` not ``off``, no dropout, a plane of at least
+        ``STRIP_MIN_PIXELS`` pixels, and JAX's strip gate for the kernel
+        ``strip`` picks (the recompute kernel's for ``on``, else the
+        carry kernel's)."""
+        layers = list(self.children())
+        if (self.strip == "off" or self.training
+                or any(layer.drop_rate > 0 for layer in layers)
+                or x.shape[2] * x.shape[3] < STRIP_MIN_PIXELS):
+            return False
+        growth = layers[0].conv2.out_channels
+        return strip_eligible(
+            x.shape[0], x.shape[2], x.shape[3], x.shape[1], growth, len(layers),
+            layers[0].conv1.out_channels // growth, x.element_size(),
+            carry=self.strip != "on")
 
     def _k4_eligible(self, x) -> bool:
         """Eval, impl ``pallas``, no dropout, and JAX's sample-group rule:
@@ -330,7 +360,8 @@ class Encoder(nn.Module):
             num_layers = spec.block_config[i]
             self.add_module(f"denseblock{i + 1}", DenseBlock(
                 num_layers, num_features, spec.bn_size, spec.growth_rate,
-                spec.drop_rate, impl=spec.impl_for_block(i)))
+                spec.drop_rate, impl=spec.impl_for_block(i),
+                strip=spec.dense_block_strip))
             num_features += num_layers * spec.growth_rate
             if i != self.last_block:
                 self.add_module(f"transition{i + 1}",
@@ -618,17 +649,22 @@ class ModelBundle:
 
 
 def _dense_u_net_lidar(arch, growth_rate, block_config, num_init_features,
-                       pretrained, progress, config, *, device="cpu", seed=None):
-    """Build a bundle whose module is on ``device``, in eval mode, with
-    channels_last weights. Like the JAX constructor it overwrites the
-    architecture fields of ``config.model``; ``seed`` defaults to
-    ``config.agent.seed``."""
+                       pretrained, progress, config, *, device="cuda", seed=None):
+    """Build a bundle whose module is on ``device`` (the card unless the
+    caller names another), in eval mode, with channels_last weights. Like
+    the JAX constructor it overwrites the architecture fields of
+    ``config.model``; ``seed`` defaults to ``config.agent.seed``."""
     from ..config import get_config
 
     if pretrained:
         raise NotImplementedError(
             f"pretrained=True needs the torchvision {arch} import, which the "
             "port does not have yet (ROADMAP.md, module queue)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{arch}_u_lidar builds on the GPU (device={str(device)!r}) and this "
+            "machine has no CUDA device; pass device='cpu' to build on the CPU")
     if config is None:
         config = get_config()
     config.model.growth_rate = growth_rate

@@ -29,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("concat_bn_relu_conv1x1.cu", "dense_block_strip.cu", "phase_head.cu",
-           "dense_block.cu", "stem_pool.cu")
+           "dense_block.cu", "stem_pool.cu", "dense_block_recompute.cu")
 HEADERS = ("dtype.cuh", "dense_layer_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -114,6 +114,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p] * 8 + [ctypes.c_int] * 8 + [p]
         fn.restype = ctypes.c_int
+    fn = lib.dmm_dense_block_recompute
+    fn.argtypes = [p] * 8 + [ctypes.c_int] * 8 + [p] * 3 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
     fn = lib.dmm_phase_head
     fn.argtypes = [p] * 9 + [ctypes.c_int] * 8 + [p]
     fn.restype = ctypes.c_int

@@ -1,5 +1,5 @@
-"""A whole dense block at inference (K2): the counterpart of
-``dmmfods_tpu/ops/pallas/dense_block_strip.py::dense_block_strip_carry``.
+"""A whole dense block at inference on a batch-1 plane, two ways: the port
+of ``dmmfods_tpu/ops/pallas/dense_block_strip.py``, which holds both.
 
 For each layer ``l`` (``width = c0 + l * G``), with BN folded:
 
@@ -7,16 +7,27 @@ For each layer ``l`` (``width = c0 + l * G``), with BN folded:
     y2  = ReLU((act @ w1) * g2 + b2)                  in the activation dtype
     feats = cat(feats, conv3x3(y2, w3, zero padding))
 
-* :func:`dense_block_strip` is the wrapper. For a CUDA tensor it runs the
-  hand-written kernel ``csrc/dense_block_strip.cu`` (or raises): the block's
-  output buffer is allocated once and each layer writes its slab into it, so
-  no concat is ever copied. For a CPU tensor it runs the plain version.
-* :func:`dense_block_strip_reference` is the plain PyTorch version, the
-  textbook loop on the folded stacks. The CPU tests hold it against the JAX
-  kernel (interpret mode), and ``chip_smoke.py`` holds the kernel against it
-  on the card.
+* :func:`dense_block_strip` (K2, the counterpart of JAX's
+  ``dense_block_strip_carry``) is the wrapper of ``csrc/dense_block_strip.cu``:
+  the block's output buffer is allocated once and each of the L layer
+  launches writes its slab into it, so no concat is ever copied.
+* :func:`dense_block_strip_recompute` (K5, the counterpart of JAX's
+  ``dense_block_strip``) is the wrapper of ``csrc/dense_block_recompute.cu``:
+  the same function in one launch, the plane cut into independent row
+  strips (:func:`plan_strips`) that recompute their halo.
+* :func:`dense_block_strip_reference` is the plain PyTorch version of both,
+  the textbook loop on the folded stacks. The CPU tests hold it against the
+  JAX kernels (interpret mode), and ``chip_smoke.py`` holds the kernels
+  against it on the card.
+* :func:`pick_rs_carry`, :func:`pick_rs` and :func:`eligible` are JAX's gate
+  of its two strip kernels, kept as they are (the TPU's VMEM budget, its
+  16-column tiling and the dtype's bytes) so that the port runs K2 and K5 on
+  exactly the blocks where the JAX model runs its strip kernels. They say
+  nothing about the card; the CUDA kernels take any block shape.
 
-Both take ``x`` as ``(B, H, W, c0)`` NHWC and ``folded`` as returned by
+For a CUDA tensor the wrappers launch their kernel (or raise); for a CPU
+tensor they run the plain version. All take ``x`` as ``(B, H, W, c0)`` NHWC
+(K5: ``B = 1``) and ``folded`` as returned by
 :func:`.dense_block.fold_block_params`, and return ``(B, H, W, C_max)``.
 """
 
@@ -28,10 +39,16 @@ import torch.nn.functional as F
 from .fused import _DTYPE_CODES, LaunchCount
 
 K2_LAUNCHES = LaunchCount()
+K5_LAUNCHES = LaunchCount()
 
 # the kernels' shared-memory plan (csrc/dense_layer_tile.cuh: kKMax, kGMax)
 MAX_BOTTLENECK = 128
 MAX_GROWTH = 32
+# K5's output tile (csrc/dense_block_recompute.cu: kTH, kTW)
+TILE_ROWS, TILE_COLS = 8, 16
+
+# JAX's VMEM budget of a strip (a number of the gate, not of the card)
+STRIP_BUDGET_BYTES = 90 * 1024 * 1024
 
 _KEYS = ("g1", "b1", "w1", "g2", "b2", "w3")
 
@@ -87,8 +104,81 @@ def dense_block_strip_reference(x, folded):
     return feats.permute(0, 2, 3, 1).contiguous()
 
 
+def pick_rs_carry(h, num_layers, w, c0, growth, k, dtype_bytes=2):
+    """JAX's strip height for its carry kernel: the first RS of (64, 48, 40,
+    32, 24, 20, 16, 8) that divides ``h``, is at least ``L + 2`` and fits its
+    working set in ``STRIP_BUDGET_BYTES``; None when none does."""
+    c_max = c0 + num_layers * growth
+    for rs in (64, 48, 40, 32, 24, 20, 16, 8):
+        if h % rs != 0 or rs < num_layers + 2:
+            continue
+        r = (rs + num_layers + 2) * w
+        r2 = (rs + 2) * w
+        buf = r * c_max * dtype_bytes
+        act = r2 * c_max * 4
+        y1 = r2 * k * 4
+        y2cat = r2 * 3 * k * dtype_bytes
+        ctr = r2 * 3 * growth * 4
+        io = (rs * w * c0 + rs * w * c_max) * dtype_bytes
+        weights = num_layers * (c_max * k + 3 * k * 3 * growth) * dtype_bytes
+        if buf + act + y1 + y2cat + ctr + io + weights <= STRIP_BUDGET_BYTES:
+            return rs
+    return None
+
+
+def pick_rs(h, num_layers, w, c0, growth, k, dtype_bytes=2):
+    """JAX's strip height for its recompute kernel: the first RS of (64, 48,
+    40, 32, 24, 20, 16, 8) that divides ``h``, is at least ``L`` and fits
+    its window of ``RS + 2 L`` rows in ``STRIP_BUDGET_BYTES``; None when
+    none does."""
+    c_max = c0 + num_layers * growth
+    for rs in (64, 48, 40, 32, 24, 20, 16, 8):
+        if h % rs != 0 or rs < num_layers:
+            continue
+        r = (rs + 2 * num_layers) * w
+        buf = r * c_max * dtype_bytes
+        act = r * c_max * 4
+        y1 = r * k * 4
+        y2cat = r * 3 * k * dtype_bytes
+        ctr = r * 3 * growth * 4
+        io = (3 * rs * w * c0 + 2 * rs * w * c_max) * dtype_bytes
+        weights = num_layers * (c_max * k + 3 * k * 3 * growth) * dtype_bytes
+        if buf + act + y1 + y2cat + ctr + io + weights <= STRIP_BUDGET_BYTES:
+            return rs
+    return None
+
+
+def eligible(batch, h, w, c0, growth, num_layers, bn_size, dtype_bytes=2, carry=False):
+    """JAX's gate of its strip kernels: batch 1, ``c0`` and ``growth``
+    multiples of 8, ``w`` a multiple of 16 (bf16) or 8, and a strip height
+    from :func:`pick_rs_carry` (``carry``, K2) or :func:`pick_rs` (K5)."""
+    picker = pick_rs_carry if carry else pick_rs
+    return (batch == 1 and c0 % 8 == 0 and growth % 8 == 0
+            and w % (16 if dtype_bytes == 2 else 8) == 0
+            and picker(h, num_layers, w, c0, growth, bn_size * growth,
+                       dtype_bytes) is not None)
+
+
+def plan_strips(h, w, num_layers, sms):
+    """K5's geometry on a card of ``sms`` SMs: ``(rows, strips, blocks)``.
+
+    Two strips of ``ceil(h / 2)`` rows rounded up to the tile's 8 (one strip
+    where the plane is a single tile row), run by ``blocks`` blocks of one
+    cooperative launch, at most one per SM and none without a tile of the
+    first layer, shared out evenly over the strips. Halo rows are the only
+    extra work, so the fewest strips pay the least; one strip over the whole
+    plane would be K4's whole-image schedule with a barrier across the grid.
+    """
+    half = -(-h // 2)
+    rows = max(TILE_ROWS, -(-half // TILE_ROWS) * TILE_ROWS)
+    strips = -(-h // rows)
+    first_layer_tiles = (-(-min(rows + 2 * (num_layers - 1), h) // TILE_ROWS)
+                         * -(-w // TILE_COLS))
+    return rows, strips, min(sms, strips * first_layer_tiles)
+
+
 def dense_block_strip(x, folded):
-    """The dense block of ``folded`` on ``x`` (see the module docstring).
+    """K2: the dense block of ``folded`` on ``x`` (see the module docstring).
 
     On a CUDA device ``x`` must be a contiguous NHWC tensor in float32 or
     bfloat16 and ``K <= 128``, ``G <= 32``; the kernels launch on the current
@@ -97,11 +187,36 @@ def dense_block_strip(x, folded):
     return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES)
 
 
-def run_block_kernel(x, folded, entry, count):
-    """What K2 and K4 share around their kernels: check the operands, take
-    the plain version on the CPU, else allocate the output buffer, launch the
-    C entry point ``entry`` of the kernel library on the current stream,
-    raise on its error and add one to ``count``."""
+def dense_block_strip_recompute(x, folded):
+    """K5: the dense block of ``folded`` on a batch-1 ``x`` as independent
+    strips that recompute their halo, in one launch (see the module
+    docstring). The same operands and limits as :func:`dense_block_strip`,
+    with ``B = 1``; on the CPU the plain version runs."""
+    if x.dim() == 4 and x.shape[0] != 1:
+        raise ValueError(f"K5 runs a batch-1 plane, got x {tuple(x.shape)}")
+    return run_block_kernel(x, folded, "dmm_dense_block_recompute", K5_LAUNCHES,
+                            scratch=_recompute_scratch)
+
+
+def _recompute_scratch(x, num_layers, c0, growth, k, c_max):
+    """K5's trailing arguments: the strips' private halo rows (L above and L
+    below each strip) and their barrier counters, then the strip height and
+    the grid, planned for ``x``'s card."""
+    _, h, w, _ = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, strips, blocks = plan_strips(h, w, num_layers, sms)
+    halo = torch.empty((strips, 2 * num_layers, w, c_max), dtype=x.dtype, device=x.device)
+    arrive = torch.empty(strips, dtype=torch.int32, device=x.device)
+    return halo, arrive, rows, blocks
+
+
+def run_block_kernel(x, folded, entry, count, scratch=None):
+    """What K2, K4 and K5 share around their kernels: check the operands,
+    take the plain version on the CPU, else allocate the output buffer,
+    launch the C entry point ``entry`` of the kernel library on the current
+    stream, raise on its error and add one to ``count``. ``scratch``, where
+    given, maps ``(x, L, c0, G, K, C_max)`` to the arguments that follow the
+    common ones (tensors, passed by pointer, and ints)."""
     n, c0, growth, k, c_max = _shapes(x, folded)
     if x.device.type == "cpu":
         return dense_block_strip_reference(x, folded)
@@ -124,11 +239,13 @@ def run_block_kernel(x, folded, entry, count):
     w1 = folded["w1"].to(x.dtype).contiguous()
     w3 = folded["w3"].to(x.dtype).contiguous()
     with torch.cuda.device(x.device):
+        extra = scratch(x, n, c0, growth, k, c_max) if scratch else ()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(
             x.data_ptr(), out.data_ptr(), ops["g1"].data_ptr(), ops["b1"].data_ptr(),
             w1.data_ptr(), ops["g2"].data_ptr(), ops["b2"].data_ptr(), w3.data_ptr(),
-            bsz, h, w, c0, n, growth, k, _DTYPE_CODES[x.dtype], stream)
+            bsz, h, w, c0, n, growth, k, _DTYPE_CODES[x.dtype], stream,
+            *(a.data_ptr() if torch.is_tensor(a) else a for a in extra))
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
     count.add()

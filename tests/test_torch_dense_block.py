@@ -105,10 +105,15 @@ def test_plain_version_matches_jax_carry_kernel(L, c0, growth, h, w, rs):
 
 def test_eval_block_dispatch_matches_plain_loop(monkeypatch):
     """Above the gate the eval block runs K2's wrapper (its plain version
-    on the CPU); below it, in train mode or at batch 2, the concat loop."""
-    L, c0, growth, h, w = 3, 10, 8, 9, 13
+    on the CPU); below it, in train mode or at batch 2, the concat loop.
+    The shape is one JAX's carry gate takes (c0 and w multiples of 8); a
+    ragged plane (c0 10, 9x13), which that gate refuses, runs the loop at
+    any size and still matches the JAX block."""
+    L, c0, growth, h, w = 3, 16, 8, 8, 16
     _, variables, x = _jax_block(L, c0, growth, h, w, seed=5, batch=2)
     block = _port_block(variables, L, c0, growth)
+    jax_ragged, ragged_vars, x_ragged = _jax_block(L, 10, growth, 9, 13, seed=5)
+    ragged = _port_block(ragged_vars, L, 10, growth)
     calls = []
 
     def spy(*args):
@@ -119,15 +124,20 @@ def test_eval_block_dispatch_matches_plain_loop(monkeypatch):
     xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     with torch.no_grad():
         plain = block(xt[:1])
-        assert calls == []                       # 117 px < STRIP_MIN_PIXELS
+        assert calls == []                       # 128 px < STRIP_MIN_PIXELS
         monkeypatch.setattr(pm, "STRIP_MIN_PIXELS", h * w)
         got = block(xt[:1])
         assert calls == [(1, h, w, c0)]
         block(xt)                                # batch 2: the loop
         block.train()(xt[:1])                    # train: the loop
+        monkeypatch.setattr(pm, "STRIP_MIN_PIXELS", 9 * 13)
+        got_ragged = ragged(torch.from_numpy(x_ragged).permute(0, 3, 1, 2))
     assert len(calls) == 1
     assert got.shape == (1, c0 + L * growth, h, w)
     torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
+    want_ragged = np.asarray(jax_ragged.apply(ragged_vars, jnp.asarray(x_ragged), False))
+    np.testing.assert_allclose(got_ragged.permute(0, 2, 3, 1).numpy(), want_ragged,
+                               atol=ATOL)
 
 
 def _folded(rng, L=2, c0=6, growth=4, k=16):

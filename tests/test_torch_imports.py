@@ -1,7 +1,8 @@
-"""The port imports no JAX. Checked in a fresh interpreter, since this test
-process has JAX loaded already (``conftest.py``): import every module of
-``dmmfods_tpu_torch`` and ``chip_smoke``, run a tiny forward on the CPU, and
-look at ``sys.modules``."""
+"""The port imports no JAX and nothing of the JAX package. Checked in a
+fresh interpreter, since this test process has both loaded already
+(``conftest.py``): import every module of ``dmmfods_tpu_torch`` and
+``chip_smoke``, build a config, run a tiny forward on the CPU, and look at
+``sys.modules``."""
 
 import subprocess
 import sys
@@ -18,14 +19,19 @@ names = [m.name for m in pkgutil.walk_packages(dmmfods_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from dmmfods_tpu_torch.config import EDict, create_config
 from dmmfods_tpu_torch.models.dense_unet_lidar import DenseUNetLidar, ModelSpec
-for opt_in in ({}, {"dense_block_impl": "pallas", "stem_pool_strip": "on"}):
+assert ModelSpec.from_config(EDict(create_config("host"))).dense_block_strip == "auto"
+for opt_in in ({}, {"dense_block_impl": "pallas", "stem_pool_strip": "on",
+                    "dense_block_strip": "on"}):
     spec = ModelSpec(growth_rate=8, block_config=(1, 1), num_init_features=8, **opt_in)
     with torch.no_grad():
         out = DenseUNetLidar(spec).eval()(torch.rand(1, 64, 64, 3), torch.rand(1, 64, 64, 1))
     assert out.shape == (1, 64, 64, 3), out.shape
 assert "jax" not in sys.modules and "flax" not in sys.modules, sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+assert not [m for m in sys.modules if m.split(".")[0] == "dmmfods_tpu"], sorted(
+    m for m in sys.modules if m.split(".")[0] == "dmmfods_tpu")
 print(" ".join(sorted(names)))
 """
 

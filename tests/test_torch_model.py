@@ -242,12 +242,13 @@ def test_head_matches_jax_phase_space_head():
 
 
 def test_densenet121_parameter_count(tmp_path):
-    bundle = pm.densenet121_u_lidar(config=get_config(str(tmp_path)))
+    bundle = pm.densenet121_u_lidar(config=get_config(str(tmp_path)), device="cpu")
     assert bundle.num_params == 22_409_544
     assert bundle.spec.fusion == "mid" and bundle.spec.dtype == torch.bfloat16
     assert not bundle.module.training
     with pytest.raises(NotImplementedError):
-        pm.densenet121_u_lidar(pretrained=True, config=get_config(str(tmp_path)))
+        pm.densenet121_u_lidar(pretrained=True, config=get_config(str(tmp_path)),
+                               device="cpu")
 
 
 @pytest.mark.slow
@@ -316,6 +317,50 @@ def test_config3_logits_match_jax_through_k2_and_k3(tmp_path, monkeypatch):
     # blocks 1 (16x32) and 2 (8x16) of each stream; block 3 (4x8) is below the gate
     assert sorted(calls["k2"]) == [(1, 8, 16, 16)] * 2 + [(1, 16, 32, 16)] * 2
     assert calls["k3"] == [(1, h // 2, w // 2, 32)]
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_config3_logits_match_jax_through_k5(tmp_path, monkeypatch):
+    """The tiny config-3 model at batch 1 on the recompute strip path: JAX
+    with ``tpu.dense_block_strip = "on"`` runs its recompute strip kernel
+    (interpret mode) on the blocks its gate takes; the port with
+    ``gpu.dense_block_strip = "on"`` runs K5's wrapper (its plain version on
+    the CPU) on blocks 1 and 2 of both streams, and K2's never. Same
+    atol/rtol 1e-4 as above."""
+    h, w = 64, 128
+    jcfg, pcfg = _tiny_configs(tmp_path, cbn=3, s2=1)
+    jcfg.tpu.dense_block_strip = "on"
+    jcfg.tpu.rows_min_pixels = 64
+    pcfg.gpu.dense_block_strip = "on"
+    jmodule = jm.DenseUNetLidar(jm.ModelSpec.from_config(jcfg))
+    rng = np.random.default_rng(19)
+    rgb = rng.uniform(0, 1, (1, h, w, 3)).astype(np.float32)
+    lidar = rng.uniform(0, 1, (1, h, w, 1)).astype(np.float32)
+    variables = _randomize(_jax_init(jmodule, rgb, lidar, False), 19)
+    want = np.asarray(jax.jit(lambda v: jmodule.apply(v, rgb, lidar, False))(variables))
+
+    pspec = pm.ModelSpec.from_config(pcfg)
+    assert pspec.dense_block_strip == "on"
+    port = pm.DenseUNetLidar(pspec)
+    port.load_state_dict(state_dict_from_jax(variables, pspec), strict=True)
+    calls = {"k2": [], "k5": []}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls[name].append(tuple(args[0].shape))
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(pm, "dense_block_strip", spy("k2", pm.dense_block_strip))
+    monkeypatch.setattr(pm, "dense_block_strip_recompute",
+                        spy("k5", pm.dense_block_strip_recompute))
+    monkeypatch.setattr(pm, "STRIP_MIN_PIXELS", 64)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(rgb), torch.from_numpy(lidar)).numpy()
+    # blocks 1 (16x32) and 2 (8x16) of each stream; block 3 (4x8) is below the gate
+    assert sorted(calls["k5"]) == [(1, 8, 16, 16)] * 2 + [(1, 16, 32, 16)] * 2
+    assert calls["k2"] == []
     assert np.abs(want).max() > 0.1
     np.testing.assert_allclose(got, want, **TOL)
 
@@ -390,6 +435,6 @@ def test_config3_parameter_count_matches_jax(tmp_path):
     want = sum(math.prod(v.shape) for _, v in _leaves(shapes["params"]))
     pcfg = get_config(str(tmp_path))
     pcfg.model.concat_before_block_num = 3
-    bundle = pm.densenet121_u_lidar(config=pcfg)
+    bundle = pm.densenet121_u_lidar(config=pcfg, device="cpu")
     assert bundle.spec.fusion == "mid" and bundle.spec.concat_before_block_num == 3
     assert bundle.num_params == want == 23_560_136
