@@ -11,18 +11,23 @@ exit code:
 1. Device: requires CUDA and prints the card's name and power limit.
 2. Build: compiles the CUDA kernels from ``dmmfods_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and prints the build time and ptxas's
-   register report of each kernel.
+   registers and spills of each kernel, with the dynamic shared memory of
+   the tensor-core kernels (K2's and K3's bf16 bodies); fails if those
+   spill.
 3. K1 (the fused concat+BN+ReLU+1x1 kernel) against its plain PyTorch
    version at the 128x192 serving shape (16x24 pixels, 128/128 -> 128
    channels) at batch 8 and 256 in bf16 and f32, at the 1280x1920 shape
    (80x120 pixels, 256/256 -> 256) in bf16, and at a ragged shape in f32.
 4. K2 (the dense block) against its plain version at the 1280x1920 block
-   shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12 layers) in bf16
+   shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12 layers) and at two
+   ragged shapes (G 8, K 32; G 12, K 48) in bf16, with its bf16 wave plan,
    and at a ragged shape in f32; K5 (the dense block as independent strips
    that recompute their halo) at the same two block shapes in bf16, also
-   against K2, and in f32 at a ragged shape whose last strip is short, at a
-   plane that is a single strip and at a block deeper than its strips; K3
-   (the head) at the 1280x1920 shape in bf16 and at a ragged shape in f32;
+   against K2 (bf16 bound: K2's bf16 layers sum in another order), and in
+   f32 at a ragged shape whose last strip is short, at a plane that is a
+   single strip and at a block deeper than its strips; K3 (the head) at the
+   1280x1920 shape and at two ragged shapes (c_mid 20 and 3 classes, 64 and
+   8) in bf16 and at a ragged shape in f32;
    K4 (the whole-block kernel) at the
    four DenseNet-121 block shapes of 128x192 in bf16, at each batch of the
    opt-in path that runs the block as K4 (``K4_PATH_BATCHES``) and at b256,
@@ -54,9 +59,13 @@ exit code:
    same weights in f32 on the default path. Every earlier phase runs no K5.
 10. Time, by CUDA events: the engine's forward with the default config and
    with the opt-ins at b1/b8/b32/b256 at 128x192 and at b1 at 1280x1920, and
-   the K5 path's forward against the default one in turns; K1 at the b256
+   the K5 path's forward against the default one in turns, then a
+   ``torch.profiler`` breakdown of the default 1280x1920 forward's device
+   time; K1 at the b256
    shape, K2 and K5 at both block shapes (K5 also against K2), K3 at the
-   1280x1920 shape, K4 at the four b256 block shapes and K6 at 1280x1920
+   1280x1920 shape on weights folded beforehand, with the fold
+   (``kernel_weights``) timed apart, K4 at the four b256 block shapes and K6
+   at 1280x1920
    with 3 channels, each against its plain version in turns; K4 and K6 also
    against the model's own plain block loop and unfused stem, the code they
    replace. Each kernel's bound is computed from the timed inputs: the
@@ -117,9 +126,17 @@ OPT_IN_LAUNCHES = {1: dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=2),
                    32: dict(K1=1, K2=0, K3=0, K4=5, K5=0, K6=0)}
 # K2's, K4's and K5's plain version, dense_block_strip_reference
 PLAIN_BLOCK = "cuDNN bf16 convs, BN in f32 over each concat prefix"
+# K2's and K3's extra bf16 shapes (name, h, w, c0, layers, growth, K; hh, hw,
+# c_up, raw channels, c_mid, classes): K and G, c_mid and classes below the
+# tensor-core tiles' multiples
+K2_RAGGED_BF16 = [("ragged", 37, 53, 24, 3, 8, 32), ("ragged 2", 21, 35, 40, 4, 12, 48)]
+K3_RAGGED_BF16 = [(13, 21, 40, 3, 20, 3), (13, 21, 40, 3, 64, 8)]
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
-                "dense_block_recompute_kernel")
+                "dense_block_recompute_kernel", "dense_layer_mma_kernel",
+                "phase_head_mma_kernel")
+# the bf16 bodies on the tensor cores, which must not spill
+TENSOR_CORE_KERNELS = ("dense_layer_mma_kernel", "phase_head_mma_kernel")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
 # rate for the type of a kernel's inputs, and the memory rate. A kernel's
 # bound is the larger of its operations over the first and the bytes it must
@@ -380,19 +397,81 @@ def _serve(engine, requests, sync_request):
     return results, time.perf_counter() - t0
 
 
-def _ptxas_report(build_log):
-    """ptxas's registers and shared memory per kernel, from the build log."""
+def _ptxas_report(build_log, lib):
+    """ptxas's registers, spills and static shared memory per kernel, from
+    the build log, with the tensor-core kernels' dynamic shared memory from
+    the library; raises if one of those spills."""
     import re
 
-    kernel = "?"
+    name, kernel, spills = "?", "?", (0, 0)
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = next((n for n in KERNEL_NAMES if n in line), "?")
             tile = re.search(r"Li(\d+)ELi(\d+)E", line)
             kernel = (f"{name}<{'bf16' if 'nv_bfloat16' in line else 'f32'}"
                       + (f", {tile[1]}x{tile[2]}" if tile else "") + ">")
+        elif "spill stores" in line:
+            spills = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
         elif "registers" in line:
-            print(f"  ptxas {kernel}:", line.split(":", 1)[1].strip())
+            dynamic = ""
+            if name == "phase_head_mma_kernel":
+                dynamic = f", {lib.dmm_phase_head_mma_smem()} bytes dynamic smem"
+            elif name == "dense_layer_mma_kernel":
+                dynamic = f", {lib.dmm_dense_layer_mma_smem()} bytes dynamic smem"
+            print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; spill stores "
+                  f"{spills[0]} B, loads {spills[1]} B{dynamic}")
+            if name in TENSOR_CORE_KERNELS and any(spills):
+                raise AssertionError(f"{kernel} spills: {spills} bytes stored, loaded")
+
+
+# torch.profiler's kernel names -> the classes of the device-time breakdown
+PROFILE_CLASSES = (("K1", ("concat_bn_relu",)), ("K2", ("dense_layer",)),
+                   ("K3", ("phase_head",)), ("K4", ("dense_block_kernel",)),
+                   ("K5", ("dense_block_recompute",)), ("K6", ("stem_pool",)),
+                   ("convolutions (cuDNN/CUTLASS)", ("conv", "cudnn", "cutlass", "xmma",
+                                                     "gemm", "sm90")),
+                   ("matrix products (cuBLAS)", ("nvjet",)),
+                   ("concat copies", ("catarray",)), ("pooling", ("pool",)),
+                   ("copies and fills", ("memcpy", "memset")),
+                   ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")))
+
+
+def _print_profile(tag, fn, event_ms, label, steps=3):
+    """Device time of ``fn`` by kernel class over ``steps`` calls after a
+    warm-up (``torch.profiler``'s device events), its busy share of
+    ``event_ms``, and the host's enqueue time of one call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_class, launches = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = ev.name.lower()
+        cls = next((c for c, keys in PROFILE_CLASSES if any(k in name for k in keys)),
+                   "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3 / steps
+        launches += 1
+    total = sum(by_class.values())
+    if total <= 0:
+        raise AssertionError(f"the profile of the {label} shows no device time")
+    print(f"{tag} profile of the {label} ({steps} calls after a warm-up): "
+          f"{total:.4f} ms of device time per call in {launches / steps:.0f} device "
+          f"operations, busy share {total / event_ms:.3f} of the {event_ms:.4f} ms event "
+          f"median; the host enqueues one call in {enqueue_ms:.4f} ms; "
+          + ", ".join(f"{c} {ms:.4f} ms ({ms / total:.1%})" for c, ms in
+                      sorted(by_class.items(), key=lambda kv: -kv[1])))
 
 
 def _serve_buckets(engine, rng, h, w, label):
@@ -447,14 +526,14 @@ def main() -> int:
 
     # 2. build -----------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     load_s = time.perf_counter() - t0
     if _build.build_seconds is None:
         print(f"build: reused {_build.library_path()} ({load_s:.2f} s to load)")
     else:
         print(f"build: nvcc {_build.build_seconds:.2f} s for {len(_build.SOURCES)} "
               f"sources in parallel, load {load_s:.2f} s -> {_build.library_path()}")
-    _ptxas_report(_build.build_log)
+    _ptxas_report(_build.build_log, lib)
 
     # 3. K1 against its plain version ----------------------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -476,35 +555,42 @@ def main() -> int:
         worst["K1"] = max(worst["K1"], err)
 
     # 4. K2, K3, K4 and K6 against their plain versions --------------------
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     k2_cases = [(name, h, w, c0, layers, 32, 128, torch.bfloat16)
                 for name, (h, w, c0, layers) in K2_BLOCKS.items()]
+    k2_cases += [(*case, torch.bfloat16) for case in K2_RAGGED_BF16]
     k2_cases.append(("ragged", 37, 53, 24, 3, 8, 32, torch.float32))
     for name, h, w, c0, layers, growth, k, dt in k2_cases:
         x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, dt, device)
         out = dense_block_strip.dense_block_strip(x, folded)
         torch.cuda.synchronize()
         ref = dense_block_strip.dense_block_strip_reference(x.float(), folded)
+        plan = ""
+        if dt == torch.bfloat16:
+            tiles, waves = dense_block_strip.layer_plan(h, w, sms)
+            plan = (f", {tiles} tiles a layer, {waves:.2f} waves of "
+                    f"{sms * dense_block_strip.LAYER_BLOCKS_PER_SM} slots")
         worst["K2"] = max(worst["K2"], _check(
-            "K2", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}", out, ref))
+            "K2", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}{plan}", out, ref))
         if name in K2_BLOCKS:      # K5 on the same inputs, against both
             out5 = dense_block_strip.dense_block_strip_recompute(x, folded)
             torch.cuda.synchronize()
             worst["K5"] = max(worst["K5"], _check(
                 "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}", out5, ref))
-            print(f"K5 vs K2 {name}: max abs diff "
-                  f"{(out5.float() - out.float()).abs().max().item():.3e}")
+            _check("K5 vs K2", name, out5, out.float())
     for name, h, w, c0, layers, growth, k in K5_EXTRA:
         x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, torch.float32, device)
         out = dense_block_strip.dense_block_strip_recompute(x, folded)
         torch.cuda.synchronize()
         ref = dense_block_strip.dense_block_strip_reference(x, folded)
-        rows, strips, blocks = dense_block_strip.plan_strips(
-            h, w, layers, torch.cuda.get_device_properties(device).multi_processor_count)
+        rows, strips, blocks = dense_block_strip.plan_strips(h, w, layers, sms)
         worst["K5"] = max(worst["K5"], _check(
             "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}, {strips} "
             f"strips of {rows} rows, {blocks} blocks", out, ref))
-    for name, shape, dt in (("1280x1920", K3_FULL, torch.bfloat16),
-                            ("ragged", (13, 21, 40, 3, 20, 3), torch.float32)):
+    k3_cases = [("1280x1920", K3_FULL, torch.bfloat16)]
+    k3_cases += [("ragged", shape, torch.bfloat16) for shape in K3_RAGGED_BF16]
+    k3_cases.append(("ragged", (13, 21, 40, 3, 20, 3), torch.float32))
+    for name, shape, dt in k3_cases:
         x_lo, raw, consts = _k3_inputs(gen, *shape, dt, device)
         out = phase_head.phase_head(x_lo, raw, **consts)
         torch.cuda.synchronize()
@@ -708,6 +794,8 @@ def main() -> int:
     print(f"{tag} engine forward K5 path b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (config 3, "
           f"dense_block_strip 'on'): median {k5_path_ms:.4f} ms; default path (K2) "
           f"{default_path_ms:.4f} ms (16 iterations each, in turns)")
+    _print_profile(tag, lambda: engine3.forward(rgb, lidar), default_path_ms,
+                   f"default b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
     del rgb, lidar
     torch.cuda.empty_cache()
 
@@ -737,8 +825,7 @@ def main() -> int:
             lambda: dense_block_strip.dense_block_strip_recompute(x, folded),
             lambda: dense_block_strip.dense_block_strip_reference(x, folded),
             lambda: dense_block_strip.dense_block_strip(x, folded), iters=10)
-        rows5, strips5, blocks5 = dense_block_strip.plan_strips(
-            h, w, layers, torch.cuda.get_device_properties(device).multi_processor_count)
+        rows5, strips5, blocks5 = dense_block_strip.plan_strips(h, w, layers, sms)
         print(f"{tag} K5 {name} (1, {h}, {w}, {c0}) L={layers} bf16, {strips5} strips of "
               f"{rows5} rows, {blocks5} blocks, work "
               f"{_k5_recompute(h, layers, rows5):.4f}x the block's rows: median "
@@ -746,9 +833,20 @@ def main() -> int:
               f"version {k5_ms[name][1]:.4f} ms; K2 {k5_ms[name][2]:.4f} ms (20 "
               f"iterations each, in turns); bound {block_bound[name][0]:.4f} ms")
     x_lo, raw, consts = _k3_inputs(gen, *K3_FULL, torch.bfloat16, device)
-    k3_ms, k3_plain_ms = _in_turns(
-        lambda: phase_head.phase_head(x_lo, raw, **consts),
-        lambda: phase_head.phase_head_reference(x_lo, raw, **consts), iters=10)
+
+    def fold():
+        return phase_head.kernel_weights(consts["w0"], consts["w1"], x_lo.shape[-1],
+                                         x_lo.dtype)
+
+    weights = fold()
+    k3_ms, k3_plain_ms, k3_fold_ms = _in_turns(
+        lambda: phase_head.phase_head(x_lo, raw, **consts, weights=weights),
+        lambda: phase_head.phase_head_reference(x_lo, raw, **consts), fold, iters=10)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fold()
+    torch.cuda.synchronize()
+    fold_wall_ms = (time.perf_counter() - t0) / 20 * 1e3
     # per low-res pixel, for its 4 full-res pixels: refine0's upsampled part
     # as a 2x2 window over x_lo (the nearest upsample's collapse), its raw
     # part as a 3x3 over rc, and refine1's 5x5; the phase-space weights'
@@ -759,10 +857,21 @@ def main() -> int:
         2 * hh * hw * 4 * (4 * c_up * c_mid + 9 * rc * c_mid + 25 * c_mid * n_cls),
         _nbytes(x_lo, raw, *consts.values()) + 4 * hh * hw * n_cls * x_lo.element_size(),
         x_lo.dtype)
+    # refine0's weights staged per frame: all of them once per output tile
+    staged = []
+    for kind, tile, w0_bytes in (("bf16", phase_head.TILE_BF16, _nbytes(weights[0])),
+                                 ("f32", phase_head.TILE_F32,
+                                  4 * 4 * (c_up + 4 * rc) * 4 * c_mid)):
+        tiles = -(-2 * hh // tile[0]) * -(-2 * hw // tile[1])
+        staged.append(f"{kind} kernel {tiles} {tile[0]}x{tile[1]} tiles x {w0_bytes} B = "
+                      f"{tiles * w0_bytes / 1e9:.3f} GB")
+    print("K3 refine0 weights staged per frame: " + "; ".join(staged))
     print(f"{tag} K3 {FULL_HEIGHT}x{FULL_WIDTH} (x_lo {tuple(x_lo.shape)}, raw "
-          f"{tuple(raw.shape)}) bf16: median {k3_ms:.4f} ms; plain version (cuDNN, "
-          f"bf16) {k3_plain_ms:.4f} ms (20 iterations each, in turns); bound "
-          f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
+          f"{tuple(raw.shape)}) bf16, weights folded beforehand: median {k3_ms:.4f} ms; "
+          f"plain version (cuDNN, bf16) {k3_plain_ms:.4f} ms; the wrapper's fold "
+          f"(kernel_weights) {k3_fold_ms:.4f} ms by CUDA events (20 iterations each, in "
+          f"turns), {fold_wall_ms:.4f} ms of host wall time with its sync (20 folds); "
+          f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
     k4_ms, k4_bound = {}, {}
     for name, (h, w, c0, layers) in K4_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device,
@@ -824,7 +933,7 @@ def main() -> int:
          "replaces": "dmmfods_tpu/ops/pallas/phase_head.py:246",
          "launches": launches["K3"], "max_abs_err": worst["K3"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": LIBRARY_MS},
+         "bound_by": k3_bound[1], "library_ms": LIBRARY_MS, "fold_ms": k3_fold_ms},
         {"name": "dense_block", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block.py:262",

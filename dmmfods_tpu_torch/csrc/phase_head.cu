@@ -30,12 +30,64 @@
 //   x_lo  (B, hh, hw, c_up)         T, the decoder output before the upsample
 //   raw   (B, H, W, rc)             T, the raw network input (the skip)
 //   g0, b0 (c_up + rc,)             float, folded norm0
-//   w0p   (2, 2, c_src, 4, cm)      float, refine0 in phase space
 //   g1, b1 (cm,)                    float, folded norm1
-//   w1    (5, 5, cm, nc)            T, refine1 as (ky, kx, in, out)
 //   out   (B, H, W, nc)             T
+// and the weights, for float32
+//   w0p   (2, 2, c_src, 4, cm)      float, refine0 in phase space
+//   w1    (5, 5, cm, nc)            float, refine1 as (ky, kx, in, out)
+// and for bfloat16 packed by ops/phase_head.py::pack_phase_head_weights
+//   w0k   (4, 4 cp, 64)             bf16, w0p as phase p = 2u + v, then
+//                                   k = (2r + s) cp + c, then cm padded to
+//                                   64; cp = c_src rounded up to 16
+//   w1k   (25, 64, 8)               bf16, w1 with cm padded to 64, nc to 8
+// (zeros in every padding).
 //
-// One 256-thread block per 8x16 output tile. It
+// What bounds it on an H100: at 1280x1920 refine0 in phase space is 4 x 144
+// x 64 MACs per pixel, about 181 GFLOP a frame, refine1 25 x 64 x 3 MACs
+// (24 GFLOP), against about 40 MB read and 15 MB written: operations, on
+// the tensor cores (989 TFLOP/s bf16), ~0.2 ms.
+//
+// ---- bfloat16: refine0 and refine1 on the tensor cores -------------------
+//
+// The CUDA-core kernel (below, now float32 only) ran at ~197x that bound:
+// every product as an f32 FMA, all of w0p (590 KB in f32) restaged for
+// each of 19,200 8x16 tiles a frame (11.3 GB), staging and FMAs one after
+// the other at one block per SM, and a 1.875x recomputed mid ring. The
+// bf16 kernel (phase_head_mma_kernel):
+//   * runs refine0 as one GEMM per phase p on mma.sync m16n8k16 (bf16 in,
+//     f32 accumulation) fed by ldmatrix: M = the tile's mid pixels of phase
+//     p, N = 64 (cm), K = 4 taps x cp. Its A rows are implicit: the lane's
+//     mid pixel's 2x2 low-res window in the source held in shared memory;
+//   * takes w0p rounded once to bf16 (folded in f32 first, as before): one
+//     extra rounding of 2^-9 relative per weight beside the bf16 source's,
+//     inside BOUND_BF16 (the float32 kernel keeps w0p in f32);
+//   * streams w0k through a 3-stage cp.async ring of 64-row K-chunks, so a
+//     chunk's copy overlaps the products on the one before; each tile reads
+//     w0k once (295 KB in bf16; 4,800 16x32 tiles, 1.42 GB a frame, against
+//     11.3 GB before);
+//   * works on 16x32 output tiles: the mid ring recomputed is 20 x 36 / 16 x
+//     32 = 1.41x (1.5x with the M padding to 16 rows), against 1.875x;
+//   * stages the low-res source once per tile by cp.async (x_lo 16 bytes at
+//     a time; the space-to-depth'd raw input 8 bytes, one 4-channel pixel,
+//     at a time, else by plain loads) and applies BN0 + ReLU in place in
+//     shared memory before ldmatrix reads it: the ReLU keeps BN0 out of the
+//     weights;
+//   * runs refine1 as an implicit GEMM too, nc padded to one n8 tile: M =
+//     the 512 output pixels, K = 25 taps x 64, A rows from h in shared
+//     memory.
+// One 256-thread block per tile and per SM (the source, h and the ring take
+// 222 KB of shared memory). Shapes: c_src <= 192 (the source's room in
+// shared memory), cm <= 64, nc <= 8; larger is refused.
+// What bounds it now (an H100 at 700 W: ~2.3 ms at 1280x1920, ~11x the
+// bound, by variants with one part removed): not the MMAs but latency at
+// one 8-warp block per SM, in the tile's staging, the ring's per-chunk
+// waits and barriers, and refine0's ldmatrix traffic (PERF.md).
+//
+// ---- float32: the CUDA-core kernel (phase_head_kernel) --------------------
+//
+// float32 is the check type, and TF32 tensor cores would not meet its
+// 1e-4 bound, so it keeps the CUDA-core body. One 256-thread block per 8x16
+// output tile. It
 //   1. stages the tile's 8x12 low-res source halo 16 channels at a time,
 //      BN0 folded and ReLU'd on the way into shared memory (the raw input
 //      space-to-depth'd by indexing), beside the matching rows of w0p;
@@ -47,25 +99,18 @@
 //   4. runs refine1 from shared memory, two threads per output pixel over
 //      the two halves of the mid channels, and stores the logits.
 // refine0 on the mid ring is recomputed (240 / 128 = 1.875x its work).
-//
-// What bounds it on an H100: at 1280x1920 refine0 in phase space is 4 x 144
-// x 64 MACs per pixel, about 181 GFLOP a frame (340 with the ring), against
-// about 40 MB read and 15 MB written. This first version runs on CUDA cores
-// in f32 and is bound by neither: compiling parts of it out on an H100
-// (700 W) showed staging (every block restages all of w0p, 590 KB), the
-// refine0 FMAs and refine1 run one after the other, with one 256-thread
-// block per SM (160 registers a thread) and nothing to hide a block's
-// staging behind. The direct 3x3 form with twice the FMAs took the same
-// time. The fast version stages asynchronously and runs refine0 on the
-// tensor cores. Any H, W and channel count are taken with masked edges;
-// cm <= 64 and nc <= 8 are the shared-memory plan's limits and larger is
-// refused.
+// Compiling parts of it out on an H100 (700 W) showed staging, the refine0
+// FMAs and refine1 run one after the other, with one block per SM (160
+// registers a thread). Any H, W and channel count are taken with masked
+// edges; cm <= 64 and nc <= 8 are the shared-memory plan's limits and
+// larger is refused.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "dtype.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -255,32 +300,341 @@ phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
   }
 }
 
-template <typename T>
-int run_head(const void* x_lo, const void* raw, const float* g0, const float* b0,
-             const float* w0p, const float* g1, const float* b1, const void* w1,
-             void* out, int B, int hh, int hw, int c_up, int rc, int cm, int nc,
-             cudaStream_t s) {
-  const size_t smem = smem_bytes<T>();
+// ---- bfloat16: the tensor-core kernel ---------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+namespace tc {   // the tensor-core kernel's plan, kernel and launch
+
+constexpr int kTH = 16;                  // output tile rows (even)
+constexpr int kTW = 32;                  // output tile columns (even)
+constexpr int kPH = kTH / 2 + 2;         // one phase's mid pixels: 10 rows
+constexpr int kPW = kTW / 2 + 2;         //   x 18 columns
+constexpr int kPM = kPH * kPW;           // 180, as 12 m16 tiles (192 rows)
+constexpr int kWarpMT = 3;               // m16 tiles per warp (4 warps over M)
+static_assert(4 * kWarpMT * 16 >= kPM, "the warps cover a phase's mid pixels");
+constexpr int kLW = kTW / 2 + 4;         // low-res source halo: 12 x 20 cells
+constexpr int kCells = (kTH / 2 + 4) * kLW;
+constexpr int kCSrcMax = 192;            // source channels (c_src rounded up to 16)
+constexpr int kMW = kTW + 4;             // h: 20 x 36 mid pixels
+constexpr int kMid = (kTH + 4) * kMW;
+constexpr int kHS = 72;                  // h row stride: 64 + 8, conflict-free ldmatrix
+constexpr int kKC = 64;                  // w0k rows per ring chunk
+constexpr int kWS = 72;                  // ring row stride
+constexpr int kStages = 3;
+constexpr int kThreads = 256;
+constexpr size_t kSrcBytes = size_t(kCells) * (kCSrcMax + 8) * sizeof(bf16);
+constexpr size_t kHBytes = size_t(kMid) * kHS * sizeof(bf16);
+constexpr size_t kRingBytes = size_t(kStages) * kKC * kWS * sizeof(bf16);
+constexpr size_t kSmem = kSrcBytes + kHBytes + kRingBytes;
+static_assert(kSmem <= 232448, "one block per SM");
+static_assert(25 * 64 * 8 * sizeof(bf16) <= kSrcBytes, "w1k fits where the source was");
+
+// One 16x32 output tile per block (see the note at the top): the source
+// staged once with BN0 + ReLU, refine0 phase by phase through the w0k ring
+// into h, then refine1 from h.
+__global__ void __launch_bounds__(kThreads, 1)
+phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ raw,
+                      const float* __restrict__ g0, const float* __restrict__ b0,
+                      const bf16* __restrict__ w0k, const float* __restrict__ g1,
+                      const float* __restrict__ b1, const bf16* __restrict__ w1k,
+                      bf16* __restrict__ out, int H, int W, int c_up, int rc, int cm,
+                      int nc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* src = reinterpret_cast<bf16*>(smem_raw);                      // [kCells][ss]
+  bf16* hs = reinterpret_cast<bf16*>(smem_raw + kSrcBytes);           // [kMid][kHS]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + kSrcBytes + kHBytes);
+  bf16* w1s = src;                                                    // [25][64][8], after refine0
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int y0 = blockIdx.y * kTH;
+  const int x0 = blockIdx.x * kTW;
+  const int b = blockIdx.z;
+  const int hh = H / 2;
+  const int hw = W / 2;
+  const int c_src = c_up + 4 * rc;
+  const int cp = (c_src + 15) & ~15;      // K of one tap
+  const int ss = cp + 8;                  // source row stride: conflict-free ldmatrix
+  const int nkc = cp / 16;                // ring chunks per phase: 4 cp / kKC
+  const int nchunks = 4 * nkc;
+  const int ly0 = y0 / 2 - 2;             // low-res origin of the source halo
+  const int lx0 = x0 / 2 - 2;
+  const bf16* xb = x_lo + static_cast<int64_t>(b) * hh * hw * c_up;
+  const bf16* rb = raw + static_cast<int64_t>(b) * H * W * rc;
+
+  // ---- stage: x_lo's cells by cp.async, then w0k's first two chunks --------
+  const bool vec = (c_up & 7) == 0 && (reinterpret_cast<uintptr_t>(x_lo) & 15) == 0;
+  if (vec) {
+    const int nv = c_up / 8;
+    for (int e = tid; e < kCells * nv; e += kThreads) {
+      const int cell = e / nv;
+      const int v = e - cell * nv;
+      const int gy = ly0 + cell / kLW;
+      const int gx = lx0 + cell % kLW;
+      const bool in = gy >= 0 && gy < hh && gx >= 0 && gx < hw;
+      const bf16* g = in ? xb + (static_cast<int64_t>(gy) * hw + gx) * c_up + v * 8 : xb;
+      cp_async16(src + cell * ss + v * 8, g, in);
+    }
+  }
+  // the raw input's four pixels of each cell, one 8-byte copy each, where a
+  // pixel is 4 bf16 channels (the network's RGB + LiDAR) at channels c_up +
+  // 4 ph; else the BN0 pass below reads them from global memory
+  const bool raw_vec = rc == 4 && (c_up & 3) == 0 && (reinterpret_cast<uintptr_t>(raw) & 7) == 0;
+  if (raw_vec) {
+    for (int e = tid; e < kCells * 4; e += kThreads) {
+      const int cell = e >> 2;
+      const int ph = e & 3;
+      const int gy = ly0 + cell / kLW;
+      const int gx = lx0 + cell % kLW;
+      const bool in = gy >= 0 && gy < hh && gx >= 0 && gx < hw;
+      const bf16* g =
+          in ? rb + (static_cast<int64_t>(2 * gy + (ph >> 1)) * W + 2 * gx + (ph & 1)) * 4 : rb;
+      cp_async8(src + cell * ss + c_up + 4 * ph, g, in);
+    }
+  }
+  cp_async_commit();
+  auto load_chunk = [&](int j) {          // w0k rows [kc kKC, +kKC) of phase p
+    const int p = j / nkc;
+    const int kc = j - p * nkc;
+    const bf16* g = w0k + (static_cast<int64_t>(p) * 4 * cp + kc * kKC) * 64;
+    bf16* d = ring + (j % kStages) * kKC * kWS;
+    for (int e = tid; e < kKC * 8; e += kThreads)
+      cp_async16(d + (e >> 3) * kWS + (e & 7) * 8, g + e * 8, true);
+  };
+  load_chunk(0);
+  cp_async_commit();
+  load_chunk(1);
+  cp_async_commit();
+  cp_async_wait<2>();                     // the source has landed
+  __syncthreads();
+
+  // ---- BN0 + ReLU in place: warp w takes cells w, w + 8, ..., lane v the
+  // channels [8 v, 8 v + 8) of each (cp <= 192: 24 lanes at most), with its
+  // channels' BN0 constants and raw offsets in registers; zero outside the
+  // image and in the padding ---------------------------------------------------
+  if (lane < cp / 8) {
+    const int c = lane * 8;
+    float g[8], bb[8];
+    int roff[8];    // s2d channel c_up + (2 pu + pv) rc + k: raw[2 gy + pu][2 gx + pv][k]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int cc = c + i;
+      const int ph = cc < c_src && cc >= c_up ? (cc - c_up) / rc : 0;
+      const int k = cc - c_up - ph * rc;
+      const int bn = cc < c_up ? cc : c_up + k;
+      g[i] = cc < c_src ? g0[bn] : 0.f;
+      bb[i] = cc < c_src ? b0[bn] : 0.f;
+      roff[i] = ((ph >> 1) * W + (ph & 1)) * rc + k;
+    }
+    // every channel of the lane staged by cp.async (or padding, zeroed below)
+    const bool from_smem = (c >= c_up || vec) && (c + 8 <= c_up || raw_vec);
+    for (int cell = warp; cell < kCells; cell += kThreads / 32) {
+      const int gy = ly0 + cell / kLW;
+      const int gx = lx0 + cell % kLW;
+      bf16* d = src + cell * ss + c;
+      uint4 o = make_uint4(0, 0, 0, 0);
+      if (gy >= 0 && gy < hh && gx >= 0 && gx < hw) {
+        float xv[8];
+        if (from_smem) {
+          uint4 in = *reinterpret_cast<const uint4*>(d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 f = __bfloat1622float2(pairs(in)[i]);
+            xv[2 * i] = c + 2 * i < c_src ? f.x : 0.f;           // padding: not staged
+            xv[2 * i + 1] = c + 2 * i + 1 < c_src ? f.y : 0.f;
+          }
+        } else {
+          const bf16* xc = xb + (static_cast<int64_t>(gy) * hw + gx) * c_up;
+          const bf16* rc0 = rb + (static_cast<int64_t>(2 * gy) * W + 2 * gx) * rc;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int cc = c + i;
+            xv[i] = cc < c_up ? to_f32(xc[cc]) : (cc < c_src ? to_f32(rc0[roff[i]]) : 0.f);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pairs(o)[i] = __floats2bfloat162_rn(fmaxf(fmaf(xv[2 * i], g[2 * i], bb[2 * i]), 0.f),
+                                              fmaxf(fmaf(xv[2 * i + 1], g[2 * i + 1],
+                                                         bb[2 * i + 1]), 0.f));
+      }
+      *reinterpret_cast<uint4*>(d) = o;
+    }
+  }
+
+  // ---- refine0: phase by phase, warp (wm, wn) -> m16 tiles 3 wm + i, mid
+  // channels 32 wn + [0, 32) --------------------------------------------------
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const int arow = lane & 15;             // the lane's ldmatrix row
+  const int acol = (lane >> 4) * 8;       // and column
+  float acc[kWarpMT][4][4];
+  int cell0[kWarpMT];                     // the lane's A row: its window's first cell
+  for (int j = 0; j < nchunks; ++j) {
+    const int p = j / nkc;
+    const int kc = j - p * nkc;
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < kWarpMT; ++i) {
+        int q = (wm * kWarpMT + i) * 16 + arow;
+        q = q < kPM ? q : 0;              // a padding row reads any cell
+        cell0[i] = (q / kPW + (p >> 1)) * kLW + q % kPW + (p & 1);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][t][r] = 0.f;
+      }
+    }
+    cp_async_wait<1>();                   // chunk j has landed
+    __syncthreads();                      // for every thread; chunk j - 1's slot is free
+    if (j + 2 < nchunks) load_chunk(j + 2);
+    cp_async_commit();
+    const bf16* wb = ring + (j % kStages) * kKC * kWS;
+#pragma unroll
+    for (int ks = 0; ks < kKC / 16; ++ks) {
+      const int k = kc * kKC + ks * 16;   // K = (tap, channel); cp % 16 == 0
+      const int tap = k / cp;
+      const int c = k - tap * cp;
+      const int toff = (tap >> 1) * kLW + (tap & 1);
+      uint32_t a[kWarpMT][4];
+#pragma unroll
+      for (int i = 0; i < kWarpMT; ++i) ldsm_x4(a[i], src + (cell0[i] + toff) * ss + c + acol);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bw[4];
+        ldsm_x4_trans(bw, wb + (ks * 16 + arow) * kWS + wn * 32 + np * 16 + acol);
+#pragma unroll
+        for (int i = 0; i < kWarpMT; ++i) {
+          mma_bf16(acc[i][2 * np], a[i], bw[0], bw[1]);
+          mma_bf16(acc[i][2 * np + 1], a[i], bw[2], bw[3]);
+        }
+      }
+    }
+    if (kc == nkc - 1) {                  // BN1 + ReLU + the image mask -> h
+#pragma unroll
+      for (int i = 0; i < kWarpMT; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int q = (wm * kWarpMT + i) * 16 + (lane >> 2) + 8 * hf;
+          if (q >= kPM) continue;
+          const int my = 2 * (q / kPW) + (p >> 1);
+          const int mx = 2 * (q % kPW) + (p & 1);
+          const int gy = y0 - 2 + my;
+          const int gx = x0 - 2 + mx;
+          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          bf16* hrow = hs + (my * kMW + mx) * kHS;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int n = wn * 32 + t * 8 + 2 * (lane & 3);
+            const float v0 = (inside && n < cm)
+                ? fmaxf(fmaf(acc[i][t][2 * hf], g1[n], b1[n]), 0.f) : 0.f;
+            const float v1 = (inside && n + 1 < cm)
+                ? fmaxf(fmaf(acc[i][t][2 * hf + 1], g1[n + 1], b1[n + 1]), 0.f) : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(hrow + n) = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+    }
+  }
+  __syncthreads();                        // h complete; the source and the ring free
+
+  for (int e = tid; e < 25 * 64; e += kThreads) cp_async16(w1s + e * 8, w1k + e * 8, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- refine1: warp w -> output pixels [64 w, 64 w + 64), all classes ----
+  float acc1[4][4];
+  int hpix[4];                            // the lane's A row: its pixel in h
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int o = (warp * 4 + i) * 16 + arow;
+    hpix[i] = (o / kTW) * kMW + o % kTW;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc1[i][r] = 0.f;
+  }
+  for (int tap = 0; tap < 25; ++tap) {
+    const int toff = (tap / 5) * kMW + tap % 5;
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      // rows k = 32 kp + lane of w1k: b for k16 steps 2 kp and 2 kp + 1
+      uint32_t bw[4];
+      ldsm_x4_trans(bw, w1s + (tap * 64 + kp * 32 + lane) * 8);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t a[4];
+          ldsm_x4(a, hs + (hpix[i] + toff) * kHS + (2 * kp + s) * 16 + acol);
+          mma_bf16(acc1[i], a, bw[2 * s], bw[2 * s + 1]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int o = (warp * 4 + i) * 16 + (lane >> 2) + 8 * hf;
+      const int gy = y0 + o / kTW;
+      const int gx = x0 + o % kTW;
+      const int n = 2 * (lane & 3);
+      if (gy >= H || gx >= W || n >= nc) continue;
+      bf16* dst = out + ((static_cast<int64_t>(b) * H + gy) * W + gx) * nc;
+      dst[n] = __float2bfloat16(acc1[i][2 * hf]);
+      if (n + 1 < nc) dst[n + 1] = __float2bfloat16(acc1[i][2 * hf + 1]);
+    }
+}
+
+int run_head_bf16(const void* x_lo, const void* raw, const float* g0, const float* b0,
+                  const void* w0k, const float* g1, const float* b1, const void* w1k,
+                  void* out, int B, int hh, int hw, int c_up, int rc, int cm, int nc,
+                  cudaStream_t s) {
+  if (((c_up + 4 * rc + 15) & ~15) > kCSrcMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      phase_head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      phase_head_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int H = 2 * hh;
+  const int W = 2 * hw;
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
+  phase_head_mma_kernel<<<grid, kThreads, kSmem, s>>>(
+      static_cast<const bf16*>(x_lo), static_cast<const bf16*>(raw), g0, b0,
+      static_cast<const bf16*>(w0k), g1, b1, static_cast<const bf16*>(w1k),
+      static_cast<bf16*>(out), H, W, c_up, rc, cm, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+int run_head_f32(const void* x_lo, const void* raw, const float* g0, const float* b0,
+                 const float* w0p, const float* g1, const float* b1, const void* w1,
+                 void* out, int B, int hh, int hw, int c_up, int rc, int cm, int nc,
+                 cudaStream_t s) {
+  const size_t smem = smem_bytes<float>();
+  cudaError_t err = cudaFuncSetAttribute(
+      phase_head_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int H = 2 * hh;
   const int W = 2 * hw;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  phase_head_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x_lo), static_cast<const T*>(raw), g0, b0, w0p, g1, b1,
-      static_cast<const T*>(w1),
-      static_cast<T*>(out), H, W, c_up, rc, cm, nc);
+  phase_head_kernel<float><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x_lo), static_cast<const float*>(raw), g0, b0, w0p, g1,
+      b1, static_cast<const float*>(w1), static_cast<float*>(out), H, W, c_up, rc, cm,
+      nc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. One launch on `stream`, no
-// synchronisation. Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32, with w0 = w0p and w1 as (5, 5, cm, nc) float; 1 =
+// bfloat16, with w0 = w0k and w1 = w1k as packed (see the top). One launch
+// on `stream`, no synchronisation. Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int dmm_phase_head(const void* x_lo, const void* raw, const void* g0,
-                              const void* b0, const void* w0p, const void* g1,
+                              const void* b0, const void* w0, const void* g1,
                               const void* b1, const void* w1, void* out, int B,
                               int hh, int hw, int c_up, int rc, int cm, int nc,
                               int dtype, void* stream) {
@@ -294,15 +648,17 @@ extern "C" int dmm_phase_head(const void* x_lo, const void* raw, const void* g0,
   const float* f_b0 = static_cast<const float*>(b0);
   const float* f_g1 = static_cast<const float*>(g1);
   const float* f_b1 = static_cast<const float*>(b1);
-  const float* f_w0p = static_cast<const float*>(w0p);
   switch (dtype) {
     case 0:
-      return run_head<float>(x_lo, raw, f_g0, f_b0, f_w0p, f_g1, f_b1, w1, out, B, hh,
-                             hw, c_up, rc, cm, nc, s);
+      return run_head_f32(x_lo, raw, f_g0, f_b0, static_cast<const float*>(w0), f_g1,
+                          f_b1, w1, out, B, hh, hw, c_up, rc, cm, nc, s);
     case 1:
-      return run_head<__nv_bfloat16>(x_lo, raw, f_g0, f_b0, f_w0p, f_g1, f_b1, w1,
-                                     out, B, hh, hw, c_up, rc, cm, nc, s);
+      return tc::run_head_bf16(x_lo, raw, f_g0, f_b0, w0, f_g1, f_b1, w1, out, B, hh, hw,
+                           c_up, rc, cm, nc, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The bf16 kernel's dynamic shared memory per block.
+extern "C" int dmm_phase_head_mma_smem() { return static_cast<int>(tc::kSmem); }

@@ -57,6 +57,7 @@ dtype, as ``dmmfods_tpu/ops/normalization.py`` does; in train mode it is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Tuple
 
@@ -69,6 +70,7 @@ from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
 from ..ops.dense_block_strip import eligible as strip_eligible
 from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
+from ..ops.phase_head import kernel_weights as phase_head_weights
 from ..ops.phase_head import phase_head
 from ..ops.stem_pool import eligible as stem_pool_eligible
 from ..ops.stem_pool import stem_pool
@@ -266,13 +268,16 @@ class DenseBlock(nn.Module):
     """Concatenating dense block (torchvision ``_DenseBlock``): each layer
     reads the concat of the block input and every earlier layer's output.
     ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``,
-    ``strip`` is ``ModelSpec.dense_block_strip``."""
+    ``strip`` is ``ModelSpec.dense_block_strip``. The kernels' folded stacks
+    are kept between calls and folded again when a parameter or buffer of
+    the block changes (its storage or version counter)."""
 
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
                  drop_rate, impl="concat", strip="auto"):
         super().__init__()
         self.impl = impl
         self.strip = strip
+        self._folded = None                   # (key, fold_block_params(self))
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 num_input_features + i * growth_rate, growth_rate, bn_size,
@@ -283,16 +288,24 @@ class DenseBlock(nn.Module):
         then K4, else the loop."""
         if self._strip_eligible(x):
             run = dense_block_strip_recompute if self.strip == "on" else dense_block_strip
-            out = run(x.permute(0, 2, 3, 1).contiguous(), fold_block_params(self))
+            out = run(x.permute(0, 2, 3, 1).contiguous(), self._folded_params())
             return out.permute(0, 3, 1, 2)
         if self._k4_eligible(x):
-            out = dense_block(x.permute(0, 2, 3, 1).contiguous(),
-                              fold_block_params(self))
+            out = dense_block(x.permute(0, 2, 3, 1).contiguous(), self._folded_params())
             return out.permute(0, 3, 1, 2)
         features = x
         for layer in self.children():
             features = torch.cat([features, layer(features)], dim=1)
         return features
+
+    def _folded_params(self):
+        """``fold_block_params(self)``, from the cache while every parameter
+        and buffer is the same tensor at the same version."""
+        key = tuple((t.data_ptr(), t._version)
+                    for t in itertools.chain(self.parameters(), self.buffers()))
+        if self._folded is None or self._folded[0] != key:
+            self._folded = (key, fold_block_params(self))
+        return self._folded[1]
 
     def _strip_eligible(self, x) -> bool:
         """JAX's ``DenseBlock._strip_eligible`` with the card in the TPU's
@@ -508,10 +521,14 @@ class Head(nn.Module):
 
     Eval at batch 1 on a big plane runs the whole head as K3
     (:func:`..ops.phase_head.phase_head`) on NHWC views, so the upsample,
-    the concat and the mid tensor never exist in memory."""
+    the concat and the mid tensor never exist in memory. On the card its
+    folded weights are kept between calls and folded again when the refine
+    weights change (their storage or version counter) or the dtype does."""
 
     def __init__(self, up_channels, raw_channels, mid_features, num_classes):
         super().__init__()
+        self.up_channels = up_channels
+        self._k3_weights = None               # (key, kernel_weights(...))
         self.norm0 = _batch_norm(up_channels + raw_channels)
         self.refine0 = nn.Conv2d(up_channels + raw_channels, mid_features, 3,
                                  padding=1, bias=False)
@@ -526,11 +543,24 @@ class Head(nn.Module):
             out = phase_head(x_lo.permute(0, 2, 3, 1).contiguous(),
                              raw.permute(0, 2, 3, 1).contiguous(),
                              g0=g0, b0=b0, w0=self.refine0.weight,
-                             g1=g1, b1=b1, w1=self.refine1.weight)
+                             g1=g1, b1=b1, w1=self.refine1.weight,
+                             weights=self._kernel_weights(x_lo) if x_lo.is_cuda else None)
             return out.permute(0, 3, 1, 2)
         x = torch.cat([F.interpolate(x_lo, scale_factor=2, mode="nearest"), raw], dim=1)
         x = _conv(_bn_relu(x, self.norm0), self.refine0)
         return _conv(_bn_relu(x, self.norm1), self.refine1)
+
+    def _kernel_weights(self, x_lo):
+        """K3's folded weights for ``x_lo``'s dtype, from the cache while the
+        refine weights are the same tensors at the same version."""
+        w0, w1 = self.refine0.weight, self.refine1.weight
+        key = (x_lo.dtype, w0.device, w0.data_ptr(), w0._version, w1.data_ptr(),
+               w1._version)
+        if self._k3_weights is None or self._k3_weights[0] != key:
+            with torch.no_grad():
+                weights = phase_head_weights(w0, w1, self.up_channels, x_lo.dtype)
+            self._k3_weights = (key, weights)
+        return self._k3_weights[1]
 
     def _kernel_eligible(self, x_lo, raw) -> bool:
         h, w = raw.shape[-2:]

@@ -30,7 +30,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("concat_bn_relu_conv1x1.cu", "dense_block_strip.cu", "phase_head.cu",
            "dense_block.cu", "stem_pool.cu", "dense_block_recompute.cu")
-HEADERS = ("dtype.cuh", "dense_layer_tile.cuh")
+HEADERS = ("dtype.cuh", "dense_layer_tile.cuh", "dense_layer_mma.cuh",
+           "tensor_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +41,7 @@ LIB_NAME = "libdmmfods_kernels.so"
 _lock = threading.Lock()
 _lib = None
 build_seconds = None   # wall time of the build this process ran; None if it reused one
-build_log = ""         # nvcc's output (ptxas register / shared-memory report)
+build_log = ""         # nvcc's output (ptxas's report) of the build in use
 
 
 def _nvcc() -> str:
@@ -123,16 +124,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.dmm_stem_pool
     fn.argtypes = [p] * 5 + [ctypes.c_int] * 6 + [p]
     fn.restype = ctypes.c_int
+    for name in ("dmm_dense_layer_mma_smem", "dmm_phase_head_mma_smem"):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built first if this tree has no build of it."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             path = library_path()
             if not path.is_file():
                 _compile(path)
+            elif (path.parent / "nvcc.log").is_file():
+                build_log = (path.parent / "nvcc.log").read_text()
             lib = ctypes.CDLL(str(path))
             _declare(lib)
             _lib = lib

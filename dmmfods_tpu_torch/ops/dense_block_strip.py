@@ -10,7 +10,9 @@ For each layer ``l`` (``width = c0 + l * G``), with BN folded:
 * :func:`dense_block_strip` (K2, the counterpart of JAX's
   ``dense_block_strip_carry``) is the wrapper of ``csrc/dense_block_strip.cu``:
   the block's output buffer is allocated once and each of the L layer
-  launches writes its slab into it, so no concat is ever copied.
+  launches writes its slab into it, so no concat is ever copied. In bfloat16
+  its layers run on the tensor cores, with w1 and w3 laid out by
+  :func:`pack_layer_weights`.
 * :func:`dense_block_strip_recompute` (K5, the counterpart of JAX's
   ``dense_block_strip``) is the wrapper of ``csrc/dense_block_recompute.cu``:
   the same function in one launch, the plane cut into independent row
@@ -44,6 +46,11 @@ K5_LAUNCHES = LaunchCount()
 # the kernels' shared-memory plan (csrc/dense_layer_tile.cuh: kKMax, kGMax)
 MAX_BOTTLENECK = 128
 MAX_GROWTH = 32
+# K2's bf16 layer kernel (csrc/dense_block_strip.cu, csrc/dense_layer_mma.cuh):
+# its tile, the blocks of it an SM holds, and the prefix channels of a chunk
+LAYER_TILE = (8, 16)
+LAYER_BLOCKS_PER_SM = 2
+LAYER_CHUNK = 32
 # K5's output tile (csrc/dense_block_recompute.cu: kTH, kTW)
 TILE_ROWS, TILE_COLS = 8, 16
 
@@ -177,6 +184,32 @@ def plan_strips(h, w, num_layers, sms):
     return rows, strips, min(sms, strips * first_layer_tiles)
 
 
+def pack_layer_weights(folded):
+    """K2's bf16 kernel's w1 and w3 from ``folded``'s: ``w1`` ``(L, C_max,
+    K)`` -> ``(L, cp, 128)`` with ``cp`` = C_max rounded up to
+    ``LAYER_CHUNK``, ``w3`` ``(L, 3, 3, K, G)`` -> ``(L, 9, 128, 32)``, in
+    bf16 with zeros in the padding: every chunk of 32 rows is in bounds, and
+    K and G are the tensor-core tiles' multiples."""
+    w1, w3 = folded["w1"], folded["w3"]
+    n, c_max, k = w1.shape
+    growth = w3.shape[-1]
+    cp = -(-c_max // LAYER_CHUNK) * LAYER_CHUNK
+    w1p = w1.new_zeros(n, cp, MAX_BOTTLENECK)
+    w1p[:, :c_max, :k] = w1
+    w3p = w3.new_zeros(n, 9, MAX_BOTTLENECK, MAX_GROWTH)
+    w3p[:, :, :k, :growth] = w3.reshape(n, 9, k, growth)
+    return w1p.to(torch.bfloat16), w3p.to(torch.bfloat16)
+
+
+def layer_plan(h, w, sms):
+    """K2's bf16 launch plan for an ``h`` x ``w`` plane on a card of ``sms``
+    SMs: ``(tiles, waves)``, its 8x16 tiles a layer and their waves of
+    ``LAYER_BLOCKS_PER_SM`` blocks on each SM."""
+    rows, cols = LAYER_TILE
+    tiles = -(-h // rows) * -(-w // cols)
+    return tiles, tiles / (sms * LAYER_BLOCKS_PER_SM)
+
+
 def dense_block_strip(x, folded):
     """K2: the dense block of ``folded`` on ``x`` (see the module docstring).
 
@@ -184,7 +217,20 @@ def dense_block_strip(x, folded):
     bfloat16 and ``K <= 128``, ``G <= 32``; the kernels launch on the current
     stream and a failure raises. On the CPU the plain version runs.
     """
-    return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES)
+    return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES,
+                            weights=_layer_weights)
+
+
+def _layer_weights(folded, dtype):
+    """K2's w1 and w3: packed for the bf16 kernel, else as they are."""
+    if dtype == torch.bfloat16:
+        return pack_layer_weights(folded)
+    return _cast_weights(folded, dtype)
+
+
+def _cast_weights(folded, dtype):
+    """w1 and w3 in ``dtype``, as K4, K5 and K2 in float32 take them."""
+    return folded["w1"].to(dtype).contiguous(), folded["w3"].to(dtype).contiguous()
 
 
 def dense_block_strip_recompute(x, folded):
@@ -210,13 +256,14 @@ def _recompute_scratch(x, num_layers, c0, growth, k, c_max):
     return halo, arrive, rows, blocks
 
 
-def run_block_kernel(x, folded, entry, count, scratch=None):
+def run_block_kernel(x, folded, entry, count, scratch=None, weights=_cast_weights):
     """What K2, K4 and K5 share around their kernels: check the operands,
     take the plain version on the CPU, else allocate the output buffer,
     launch the C entry point ``entry`` of the kernel library on the current
     stream, raise on its error and add one to ``count``. ``scratch``, where
     given, maps ``(x, L, c0, G, K, C_max)`` to the arguments that follow the
-    common ones (tensors, passed by pointer, and ints)."""
+    common ones (tensors, passed by pointer, and ints); ``weights`` maps
+    ``(folded, dtype)`` to the kernel's w1 and w3."""
     n, c0, growth, k, c_max = _shapes(x, folded)
     if x.device.type == "cpu":
         return dense_block_strip_reference(x, folded)
@@ -236,8 +283,7 @@ def run_block_kernel(x, folded, entry, count, scratch=None):
     if out.numel() == 0:
         return out
     ops = {name: folded[name].contiguous() for name in ("g1", "b1", "g2", "b2")}
-    w1 = folded["w1"].to(x.dtype).contiguous()
-    w3 = folded["w3"].to(x.dtype).contiguous()
+    w1, w3 = weights(folded, x.dtype)
     with torch.cuda.device(x.device):
         extra = scratch(x, n, c0, growth, k, c_max) if scratch else ()
         stream = torch.cuda.current_stream(x.device).cuda_stream

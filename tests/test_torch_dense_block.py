@@ -1,10 +1,12 @@
 """K2, the dense block of the port (``dmmfods_tpu_torch/ops/dense_block*.py``):
 ``fold_block_params`` against the JAX one, the plain version against the JAX
 carry kernel (``dense_block_strip_carry`` in interpret mode, the same code
-path the TPU runs), the eval ``DenseBlock``'s dispatch against its plain
-loop, the wrapper's argument checks, and that a CPU tensor takes the plain
-version. All in f32; the BN vectors are randomised so that some folded BN2
-bias is positive and a border bug shows (see
+path the TPU runs), the bf16 kernel's weight layout (``pack_layer_weights``)
+against the fold and its wave plan, the eval ``DenseBlock``'s dispatch
+against its plain loop and its cache of the folded stacks, the wrapper's
+argument checks, and that a CPU tensor takes the plain version. All in f32;
+the BN vectors are randomised so that some folded BN2 bias is positive and a
+border bug shows (see
 ``tests/test_pallas_dense_block_strip.py``). Tolerance: atol 5e-4, the JAX
 kernel test's own, for f32 summation-order noise over up to six layers.
 The kernel itself runs only on the card: ``test_kernel_matches_plain_on_cuda``
@@ -85,6 +87,45 @@ def test_fold_block_params_matches_jax():
                                    rtol=1e-6, err_msg=name)
 
 
+def _unpack_layer_weights(w1p, w3p, c_max, k, growth):
+    """pack_layer_weights undone, in f32: (w1, w3) in folded's layouts."""
+    n = w1p.shape[0]
+    return (w1p.float()[:, :c_max, :k],
+            w3p.float()[:, :, :k, :growth].reshape(n, 3, 3, k, growth))
+
+
+@pytest.mark.parametrize("L,c0,growth", [(3, 12, 8), (4, 40, 12), (6, 64, 32)])
+def test_pack_layer_weights_unpacks_to_fold(L, c0, growth):
+    """K2's bf16 layouts hold fold_block_params's w1 and w3 rounded to bf16,
+    with zeros in every padding (K to 128, G to 32, rows to 32)."""
+    _, variables, _ = _jax_block(L, c0, growth, 4, 4, seed=11)
+    folded = fold_block_params(_port_block(variables, L, c0, growth))
+    k, c_max = 4 * growth, c0 + L * growth
+    w1p, w3p = k2.pack_layer_weights(folded)
+    assert w1p.dtype == w3p.dtype == torch.bfloat16
+    assert tuple(w1p.shape) == (L, -(-c_max // 32) * 32, 128)
+    assert tuple(w3p.shape) == (L, 9, 128, 32)
+    w1, w3 = _unpack_layer_weights(w1p, w3p, c_max, k, growth)
+    for name, got in (("w1", w1), ("w3", w3)):
+        want = folded[name].to(torch.bfloat16).float()
+        torch.testing.assert_close(got, want, atol=0, rtol=0, msg=name)
+        assert got.abs().sum() > 0
+    assert (w1p != 0).sum() == (w1 != 0).sum()
+    assert (w3p != 0).sum() == (w3 != 0).sum()
+    # one element by hand: tap 3 ky + kx
+    assert w3p[L - 1, 3 * 2 + 1, k - 1, growth - 1] == (
+        folded["w3"][L - 1, 2, 1, k - 1, growth - 1].to(torch.bfloat16))
+
+
+def test_layer_plan():
+    """K2's bf16 wave plan on 132 SMs at two blocks each: 8x16 tiles, 1200
+    a layer at block 1 of the 1280x1920 frame, 300 (1.14 waves) at block 2,
+    the ragged edge counted."""
+    assert k2.layer_plan(320, 480, 132) == (1200, 1200 / 264)
+    assert k2.layer_plan(160, 240, 132) == (300, 300 / 264)
+    assert k2.layer_plan(37, 53, 132) == (20, 20 / 264)
+
+
 @pytest.mark.parametrize("L,c0,growth,h,w,rs", [
     (3, 16, 8, 32, 16, 8),     # several strips: the carry crosses 4 steps
     (3, 16, 8, 8, 16, 8),      # one strip and the trailing flush step
@@ -138,6 +179,27 @@ def test_eval_block_dispatch_matches_plain_loop(monkeypatch):
     want_ragged = np.asarray(jax_ragged.apply(ragged_vars, jnp.asarray(x_ragged), False))
     np.testing.assert_allclose(got_ragged.permute(0, 2, 3, 1).numpy(), want_ragged,
                                atol=ATOL)
+
+
+def test_eval_block_keeps_its_folded_stacks():
+    """The eval block folds its stacks once and again only when one of its
+    parameters or buffers changes (in place or replaced)."""
+    _, variables, _ = _jax_block(3, 16, 8, 4, 4, seed=12)
+    block = _port_block(variables, 3, 16, 8)
+    first = block._folded_params()
+    assert block._folded_params() is first
+    for name, value in fold_block_params(block).items():
+        torch.testing.assert_close(first[name], value, atol=0, rtol=0, msg=name)
+    with torch.no_grad():
+        block.denselayer2.norm1.running_var.mul_(4)
+    second = block._folded_params()
+    assert not torch.equal(second["g1"], first["g1"])
+    block.denselayer3.conv2.weight = torch.nn.Parameter(
+        block.denselayer3.conv2.weight.detach() * 3)
+    third = block._folded_params()
+    assert not torch.equal(third["w3"], second["w3"])
+    for name, value in fold_block_params(block).items():
+        torch.testing.assert_close(third[name], value, atol=0, rtol=0, msg=name)
 
 
 def _folded(rng, L=2, c0=6, growth=4, k=16):
@@ -201,7 +263,9 @@ def test_kernel_matches_plain_on_cuda():
     rng = np.random.default_rng(8)
     for (L, c0, growth, k, h, w), dtype, bound in [
             ((3, 24, 8, 32, 37, 53), torch.float32, 1e-4),
-            ((2, 64, 32, 128, 40, 48), torch.bfloat16, 1e-2)]:
+            ((2, 64, 32, 128, 40, 48), torch.bfloat16, 1e-2),
+            ((3, 24, 8, 32, 37, 53), torch.bfloat16, 1e-2),
+            ((4, 40, 12, 48, 21, 35), torch.bfloat16, 1e-2)]:
         folded = {n: t.cuda() for n, t in _folded(rng, L, c0, growth, k).items()}
         folded["w1"] = folded["w1"].to(dtype).float() * 0.1
         folded["w3"] = folded["w3"].to(dtype).float() * 0.1

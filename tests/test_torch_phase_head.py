@@ -2,8 +2,10 @@
 plain version against the JAX strip head (``phase_space_head(...,
 refine1_impl="strip")``, the Pallas kernel in interpret mode off the TPU),
 the kernel's phase-space refine0 weights (``fold_phase_head_weights``)
-against JAX's, the eval ``Head``'s dispatch against its plain form, the
-wrapper's argument checks, and that a CPU tensor takes the plain version.
+against JAX's, the bf16 kernel's weight layout (``pack_phase_head_weights``)
+against the fold, the eval ``Head``'s dispatch against its plain form and its
+cache of the folded weights, the wrapper's argument checks, and that a CPU
+tensor takes the plain version.
 All in f32 at batch 1; tolerance atol 2e-4, the JAX head test's own (the JAX
 side sums its collapsed phase-space weights in another order). The kernel itself runs
 only on the card: ``test_kernel_matches_plain_on_cuda`` skips without one,
@@ -79,6 +81,83 @@ def test_fold_phase_head_weights_matches_jax(c_up, rc):
     assert got.dtype == torch.float32
     assert got.shape == want.shape == (2, 2, c_up + 4 * rc, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+def _unpack_phase_head_weights(w0k, w1k, c_src, c_mid, n_cls):
+    """pack_phase_head_weights undone, in f32: (w0p, w1) in the layouts it
+    took."""
+    cp = w0k.shape[1] // 4
+    w0 = w0k.float().reshape(4, 4, cp, 64)[:, :, :c_src, :c_mid]
+    w0p = w0.permute(1, 2, 0, 3).reshape(2, 2, c_src, 4 * c_mid)
+    w1 = w1k.float().reshape(5, 5, 64, 8)[:, :, :c_mid, :n_cls].permute(3, 2, 0, 1)
+    return w0p, w1
+
+
+@pytest.mark.parametrize("c_up,rc,c_mid,n_cls", [
+    (128, 4, 64, 3),            # the 1280x1920 head
+    (40, 3, 20, 3),             # c_src 52 -> 64, c_mid and classes padded
+    (40, 3, 64, 8),
+])
+def test_pack_phase_head_weights_unpacks_to_fold(c_up, rc, c_mid, n_cls):
+    """The bf16 kernel's layouts hold fold_phase_head_weights's w0p rounded
+    once to bf16 and w1 exactly, with zeros in every padding."""
+    rng = np.random.default_rng(9)
+    w0 = torch.from_numpy(rng.normal(size=(c_mid, c_up + rc, 3, 3)).astype(np.float32))
+    w1 = torch.from_numpy(rng.normal(size=(n_cls, c_mid, 5, 5)).astype(np.float32))
+    w1 = w1.to(torch.bfloat16)
+    w0p = k3.fold_phase_head_weights(w0.to(torch.bfloat16), c_up)
+    w0k, w1k = k3.pack_phase_head_weights(w0p, w1)
+    c_src = c_up + 4 * rc
+    cp = -(-c_src // 16) * 16
+    assert w0k.dtype == w1k.dtype == torch.bfloat16
+    assert tuple(w0k.shape) == (4, 4 * cp, 64) and tuple(w1k.shape) == (25, 64, 8)
+    got0, got1 = _unpack_phase_head_weights(w0k, w1k, c_src, c_mid, n_cls)
+    torch.testing.assert_close(got0, w0p.to(torch.bfloat16).float(), atol=0, rtol=0)
+    torch.testing.assert_close(got1, w1.float(), atol=0, rtol=0)
+    # nothing outside the unpacked entries
+    assert (w0k != 0).sum() == (got0 != 0).sum()
+    assert (w1k != 0).sum() == (got1 != 0).sum()
+    # one element by hand: phase p = 2u + v, tap (r, s), channel c, output n
+    r, s, c, p, n = 1, 0, c_src - 1, 3, c_mid - 1
+    assert w0k[p, (2 * r + s) * cp + c, n] == w0p[r, s, c, p * c_mid + n].to(torch.bfloat16)
+    assert w1k[5 * 4 + 2, c_mid - 1, n_cls - 1] == w1[n_cls - 1, c_mid - 1, 4, 2]
+
+
+def test_kernel_weights_per_dtype():
+    """kernel_weights: for float32 the f32 fold and w1 as (5, 5, c_mid,
+    n_cls); for bfloat16 the fold of the bf16-rounded weights, packed."""
+    rng = np.random.default_rng(10)
+    w0 = torch.from_numpy(rng.normal(size=(16, 36, 3, 3)).astype(np.float32))
+    w1 = torch.from_numpy(rng.normal(size=(3, 16, 5, 5)).astype(np.float32))
+    f0, f1 = k3.kernel_weights(w0, w1, 32, torch.float32)
+    torch.testing.assert_close(f0, k3.fold_phase_head_weights(w0, 32), atol=0, rtol=0)
+    torch.testing.assert_close(f1, w1.permute(2, 3, 1, 0), atol=0, rtol=0)
+    b0, b1 = k3.kernel_weights(w0, w1, 32, torch.bfloat16)
+    want0, want1 = k3.pack_phase_head_weights(
+        k3.fold_phase_head_weights(w0.to(torch.bfloat16), 32), w1.to(torch.bfloat16))
+    torch.testing.assert_close(b0, want0, atol=0, rtol=0)
+    torch.testing.assert_close(b1, want1, atol=0, rtol=0)
+
+
+def test_eval_head_keeps_its_folded_weights():
+    """The eval Head folds K3's weights once and again only when a refine
+    weight changes (in place or replaced) or the dtype does."""
+    head = pm.Head(12, 4, 8, 3).eval()
+    x = torch.zeros(1, 12, 6, 9)
+    first = head._kernel_weights(x)
+    assert head._kernel_weights(x) is first
+    want = k3.kernel_weights(head.refine0.weight, head.refine1.weight, 12, torch.float32)
+    for got, ref in zip(first, want):
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    with torch.no_grad():
+        head.refine0.weight.mul_(2)
+    second = head._kernel_weights(x)
+    assert second is not first
+    torch.testing.assert_close(second[0], 2 * first[0], atol=0, rtol=0)
+    head.refine1.weight = torch.nn.Parameter(head.refine1.weight.detach() + 1)
+    third = head._kernel_weights(x)
+    torch.testing.assert_close(third[1], second[1] + 1, atol=0, rtol=0)
+    assert head._kernel_weights(x.to(torch.bfloat16))[0].dtype == torch.bfloat16
 
 
 def test_eval_head_dispatch_matches_plain_form(monkeypatch):
@@ -169,7 +248,9 @@ def test_kernel_matches_plain_on_cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
     for shape, dtype, bound in [((13, 21, 40, 3, 20, 3), torch.float32, 1e-4),
-                                ((40, 60, 128, 4, 64, 3), torch.bfloat16, 1e-2)]:
+                                ((40, 60, 128, 4, 64, 3), torch.bfloat16, 1e-2),
+                                ((13, 21, 40, 3, 20, 3), torch.bfloat16, 1e-2),
+                                ((13, 21, 40, 3, 64, 8), torch.bfloat16, 1e-2)]:
         (x_lo, raw), kw = _port_args(_case(np.random.default_rng(4), *shape))
         kw = {k: v.cuda() for k, v in kw.items()}
         kw["w0"] = kw["w0"].to(dtype).float()
