@@ -12,8 +12,8 @@ exit code:
 2. Build: compiles the CUDA kernels from ``dmmfods_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and prints the build time and ptxas's
    registers and spills of each kernel, with the dynamic shared memory of
-   the tensor-core kernels (K2's and K3's bf16 bodies); fails if those
-   spill.
+   the tensor-core kernels (the bf16 bodies of K2, K3, K4 and K5); fails if
+   those spill.
 3. K1 (the fused concat+BN+ReLU+1x1 kernel) against its plain PyTorch
    version at the 128x192 serving shape (16x24 pixels, 128/128 -> 128
    channels) at batch 8 and 256 in bf16 and f32, at the 1280x1920 shape
@@ -23,15 +23,19 @@ exit code:
    ragged shapes (G 8, K 32; G 12, K 48) in bf16, with its bf16 wave plan,
    and at a ragged shape in f32; K5 (the dense block as independent strips
    that recompute their halo) at the same two block shapes in bf16, also
-   against K2 (bf16 bound: K2's bf16 layers sum in another order), and in
-   f32 at a ragged shape whose last strip is short, at a plane that is a
-   single strip and at a block deeper than its strips; K3 (the head) at the
+   against K2 bit for bit (both run one layer body at one tile), and in f32
+   and bf16 (there against K2 bit for bit too) at a ragged shape whose last
+   strip is short, at a plane that is a single strip and at a block deeper
+   than its strips; K3 (the head) at the
    1280x1920 shape and at two ragged shapes (c_mid 20 and 3 classes, 64 and
    8) in bf16 and at a ragged shape in f32;
    K4 (the whole-block kernel) at the
    four DenseNet-121 block shapes of 128x192 in bf16, at each batch of the
    opt-in path that runs the block as K4 (``K4_PATH_BATCHES``) and at b256,
-   and at a ragged and a small-plane shape in f32; K6 (the fused
+   after holding its launch plan (tile, cluster, warp split, shared memory)
+   from ``dmm_dense_block_plan`` against the Python mirror ``block_plan``,
+   at a ragged shape in bf16 and f32 and at a small-plane shape in f32; K6
+   (the fused
    stem + pool0) at 1280x1920 with 3 and 1 channels and at 128x192 in
    bf16, and at a ragged shape in f32.
 5. Serve at 128x192 with the default config: the full-width DenseNet-121
@@ -57,20 +61,22 @@ exit code:
    "on"``: warm-up, the worker, one synchronous request; K1 once, K5 four
    times, K3 once and no K2, K4 or K6 per device batch; served against the
    same weights in f32 on the default path. Every earlier phase runs no K5.
-10. Time, by CUDA events: the engine's forward with the default config and
-   with the opt-ins at b1/b8/b32/b256 at 128x192 and at b1 at 1280x1920, and
-   the K5 path's forward against the default one in turns, then a
-   ``torch.profiler`` breakdown of the default 1280x1920 forward's device
-   time; K1 at the b256
-   shape, K2 and K5 at both block shapes (K5 also against K2), K3 at the
+10. Time, by CUDA events: the engine's forward with the opt-ins in turns
+   with the default config at b1/b8/b32/b256 at 128x192 and at b1 at
+   1280x1920, and the K5 path's forward in turns with the default one, then
+   ``torch.profiler`` breakdowns of the device time of the default 1280x1920
+   forward, the K5 path's and the opt-in b256 forward; K1 at the b256
+   shape, K2 and K5 at both block shapes (K5 also against K2; K2's packing
+   of its bf16 weights timed apart), K3 at the
    1280x1920 shape on weights folded beforehand, with the fold
    (``kernel_weights``) timed apart, K4 at the four b256 block shapes and K6
    at 1280x1920
    with 3 channels, each against its plain version in turns; K4 and K6 also
    against the model's own plain block loop and unfused stem, the code they
-   replace. Each kernel's bound is computed from the timed inputs: the
-   larger of its operations over the card's peak rate for the inputs' type
-   and the bytes it must move over the memory rate.
+   replace. K2, K4 and K5 take their bf16 weights packed beforehand, as the
+   eval ``DenseBlock`` keeps them. Each kernel's bound is computed from the
+   timed inputs: the larger of its operations over the card's peak rate for
+   the inputs' type and the bytes it must move over the memory rate.
 
 Its last two lines are a JSON summary of the kernels and the run's result.
 """
@@ -134,9 +140,11 @@ K3_RAGGED_BF16 = [(13, 21, 40, 3, 20, 3), (13, 21, 40, 3, 64, 8)]
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
                 "dense_block_recompute_kernel", "dense_layer_mma_kernel",
-                "phase_head_mma_kernel")
+                "phase_head_mma_kernel", "dense_block_mma_kernel",
+                "dense_block_recompute_mma_kernel")
 # the bf16 bodies on the tensor cores, which must not spill
-TENSOR_CORE_KERNELS = ("dense_layer_mma_kernel", "phase_head_mma_kernel")
+TENSOR_CORE_KERNELS = ("dense_layer_mma_kernel", "phase_head_mma_kernel",
+                       "dense_block_mma_kernel", "dense_block_recompute_mma_kernel")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
 # rate for the type of a kernel's inputs, and the memory rate. A kernel's
 # bound is the larger of its operations over the first and the bytes it must
@@ -224,6 +232,39 @@ def _check(name, shape, out, ref):
     if not err <= bound:
         raise AssertionError(f"{name} disagrees with its plain version: {err} > {bound}")
     return err
+
+
+def _check_equal(name, other, shape, out, ref):
+    """Raise unless ``out`` equals ``ref`` bit for bit."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs().max().item()
+    same = torch.equal(out, ref)
+    print(f"{name} vs {other} {shape} {str(out.dtype)[6:]}: bit for bit "
+          f"{'equal' if same else 'DIFFERENT'} (max abs diff {diff:.3e})")
+    if not same:
+        raise AssertionError(f"{name} differs from {other} at {shape}: {diff}")
+
+
+def _check_block_plan(lib, batch, h, w, sms, label):
+    """K4's launch plan from ``dmm_dense_block_plan`` against the Python
+    mirror ``block_plan``; prints it and raises if the two differ."""
+    import ctypes
+
+    from dmmfods_tpu_torch.ops.dense_block import block_plan
+
+    plan = block_plan(batch, h, w, sms)
+    got = (ctypes.c_int * len(plan.c_fields()))()
+    rc = lib.dmm_dense_block_plan(batch, h, w, sms, ctypes.cast(got, ctypes.c_void_p))
+    print(f"K4 plan {label} ({batch}, {h}, {w}): {plan.tile[0]}x{plan.tile[1]} tiles, "
+          f"{plan.tiles} an image, clusters of {plan.cluster}; bf16 body: "
+          f"{plan.m16_1x1} m16 tiles of halo, {plan.m16_3x3} of outputs, {plan.units} "
+          f"units, at most {plan.warp_units} a warp (warps' (m16 tile, n8 pair): "
+          f"{' '.join(str(list(u)) for u in plan.warps)}), {plan.smem} B of shared "
+          f"memory; C {'agrees' if rc == 0 and tuple(got) == plan.c_fields() else 'DIFFERS'}")
+    if rc != 0 or tuple(got) != plan.c_fields():
+        raise AssertionError(f"dmm_dense_block_plan {tuple(got)} (rc {rc}) differs from "
+                             f"block_plan {plan.c_fields()}")
 
 
 def _k1_inputs(gen, batch, h, w, ca, cb, cout, dtype, device):
@@ -400,10 +441,14 @@ def _serve(engine, requests, sync_request):
 def _ptxas_report(build_log, lib):
     """ptxas's registers, spills and static shared memory per kernel, from
     the build log, with the tensor-core kernels' dynamic shared memory from
-    the library; raises if one of those spills."""
+    the library (K4's from ``dense_block.mma_smem`` of its tile, which
+    ``dmm_dense_block_plan`` confirms); raises, after the whole report, if
+    one of those spills."""
     import re
 
-    name, kernel, spills = "?", "?", (0, 0)
+    from dmmfods_tpu_torch.ops.dense_block import mma_smem
+
+    name, kernel, spills, spilled = "?", "?", (0, 0), []
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = next((n for n in KERNEL_NAMES if n in line), "?")
@@ -416,17 +461,22 @@ def _ptxas_report(build_log, lib):
             dynamic = ""
             if name == "phase_head_mma_kernel":
                 dynamic = f", {lib.dmm_phase_head_mma_smem()} bytes dynamic smem"
-            elif name == "dense_layer_mma_kernel":
+            elif name in ("dense_layer_mma_kernel", "dense_block_recompute_mma_kernel"):
                 dynamic = f", {lib.dmm_dense_layer_mma_smem()} bytes dynamic smem"
+            elif name == "dense_block_mma_kernel" and tile:
+                dynamic = f", {mma_smem(int(tile[1]), int(tile[2]))} bytes dynamic smem"
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; spill stores "
                   f"{spills[0]} B, loads {spills[1]} B{dynamic}")
             if name in TENSOR_CORE_KERNELS and any(spills):
-                raise AssertionError(f"{kernel} spills: {spills} bytes stored, loaded")
+                spilled.append(f"{kernel} {spills[0]} B stored, {spills[1]} B loaded")
+    if spilled:
+        raise AssertionError("tensor-core kernels spill: " + "; ".join(spilled))
 
 
 # torch.profiler's kernel names -> the classes of the device-time breakdown
 PROFILE_CLASSES = (("K1", ("concat_bn_relu",)), ("K2", ("dense_layer",)),
-                   ("K3", ("phase_head",)), ("K4", ("dense_block_kernel",)),
+                   ("K3", ("phase_head",)),
+                   ("K4", ("dense_block_kernel", "dense_block_mma_kernel")),
                    ("K5", ("dense_block_recompute",)), ("K6", ("stem_pool",)),
                    ("convolutions (cuDNN/CUTLASS)", ("conv", "cudnn", "cutlass", "xmma",
                                                      "gemm", "sm90")),
@@ -577,16 +627,22 @@ def main() -> int:
             torch.cuda.synchronize()
             worst["K5"] = max(worst["K5"], _check(
                 "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}", out5, ref))
-            _check("K5 vs K2", name, out5, out.float())
-    for name, h, w, c0, layers, growth, k in K5_EXTRA:
-        x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, torch.float32, device)
+            _check_equal("K5", "K2", name, out5, out)
+    for (name, h, w, c0, layers, growth, k), dt in (
+            (case, dt) for case in K5_EXTRA for dt in (torch.float32, torch.bfloat16)):
+        x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, dt, device)
         out = dense_block_strip.dense_block_strip_recompute(x, folded)
         torch.cuda.synchronize()
-        ref = dense_block_strip.dense_block_strip_reference(x, folded)
-        rows, strips, blocks = dense_block_strip.plan_strips(h, w, layers, sms)
+        ref = dense_block_strip.dense_block_strip_reference(x.float(), folded)
+        rows, strips, blocks = dense_block_strip.plan_strips(
+            h, w, layers, sms, dense_block_strip.BLOCKS_PER_SM[dt])
         worst["K5"] = max(worst["K5"], _check(
             "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}, {strips} "
             f"strips of {rows} rows, {blocks} blocks", out, ref))
+        if dt == torch.bfloat16:
+            out2 = dense_block_strip.dense_block_strip(x, folded)
+            torch.cuda.synchronize()
+            _check_equal("K5", "K2", name, out, out2)
     k3_cases = [("1280x1920", K3_FULL, torch.bfloat16)]
     k3_cases += [("ragged", shape, torch.bfloat16) for shape in K3_RAGGED_BF16]
     k3_cases.append(("ragged", (13, 21, 40, 3, 20, 3), torch.float32))
@@ -600,6 +656,10 @@ def main() -> int:
             f"c_mid={shape[4]} classes={shape[5]}", out, ref))
     k4_cases = [(f"{name} b{batch}", batch, *K4_BLOCKS[name], 32, 128, torch.bfloat16)
                 for name, batches in K4_PATH_BATCHES.items() for batch in batches + (256,)]
+    for name, batch, h, w, *_ in k4_cases:
+        _check_block_plan(lib, batch, h, w, sms, name)
+    _check_block_plan(lib, 6, 37, 53, sms, "ragged")
+    k4_cases.append(("ragged", 6, 37, 53, 24, 3, 8, 32, torch.bfloat16))
     k4_cases.append(("ragged", 6, 37, 53, 24, 3, 8, 32, torch.float32))
     k4_cases.append(("small planes", 40, 4, 6, 48, 4, 16, 64, torch.float32))
     for name, batch, h, w, c0, layers, growth, k, dt in k4_cases:
@@ -621,7 +681,7 @@ def main() -> int:
         ref = stem_pool.stem_pool_reference(x.float(), w7, gamma, beta)
         worst["K6"] = max(worst["K6"], _check(
             "K6", f"x {tuple(x.shape)} F={shape[-1]}", out, ref))
-    del x, folded, x_lo, raw, consts, w7, out, out5, ref
+    del x, folded, x_lo, raw, consts, w7, out, out2, out5, ref
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
@@ -775,13 +835,20 @@ def main() -> int:
 
     # 10. time -----------------------------------------------------------------
     tag = f"[{card}]"
-    for label, eng in (("default", engine), ("opt-in", engine_opt)):
-        for batch in (1, 8, 32, 256):
-            rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
-            lidar = torch.rand(batch, HEIGHT, WIDTH, 1, generator=gen).to(device, spec.dtype)
-            ms, _ = _median_ms(lambda: eng.forward(rgb, lidar), iters=20)
-            print(f"{tag} engine forward {label} b{batch} bf16 {HEIGHT}x{WIDTH}: median "
-                  f"{ms:.4f} ms, {batch / ms * 1e3:.1f} frames/s (20 iterations)")
+    for batch in (1, 8, 32, 256):
+        rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
+        lidar = torch.rand(batch, HEIGHT, WIDTH, 1, generator=gen).to(device, spec.dtype)
+        default_ms, opt_ms = _in_turns(lambda: engine.forward(rgb, lidar),
+                                       lambda: engine_opt.forward(rgb, lidar), iters=10)
+        print(f"{tag} engine forward b{batch} bf16 {HEIGHT}x{WIDTH}: default median "
+              f"{default_ms:.4f} ms ({batch / default_ms * 1e3:.1f} frames/s); opt-ins "
+              f"(K4, K6) {opt_ms:.4f} ms ({batch / opt_ms * 1e3:.1f} frames/s) (20 "
+              f"iterations each, in turns)")
+    for label, eng, ms in (("default", engine, default_ms), ("opt-in", engine_opt, opt_ms)):
+        _print_profile(tag, lambda: eng.forward(rgb, lidar), ms,
+                       f"{label} b256 bf16 {HEIGHT}x{WIDTH} forward")
+    del rgb, lidar
+    torch.cuda.empty_cache()
     rgb = torch.rand(1, FULL_HEIGHT, FULL_WIDTH, 3, generator=gen).to(device, torch.bfloat16)
     lidar = torch.rand(1, FULL_HEIGHT, FULL_WIDTH, 1, generator=gen).to(device, torch.bfloat16)
     for label, eng in (("default", engine3), ("opt-in", engine3_opt)):
@@ -796,6 +863,8 @@ def main() -> int:
           f"{default_path_ms:.4f} ms (16 iterations each, in turns)")
     _print_profile(tag, lambda: engine3.forward(rgb, lidar), default_path_ms,
                    f"default b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
+    _print_profile(tag, lambda: engine3_k5.forward(rgb, lidar), k5_path_ms,
+                   f"K5 path b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
     del rgb, lidar
     torch.cuda.empty_cache()
 
@@ -813,20 +882,25 @@ def main() -> int:
     k2_ms, k5_ms, block_bound = {}, {}, {}
     for name, (h, w, c0, layers) in K2_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device)
+        packed = dense_block_strip.pack_layer_weights(folded)
         block_bound[name] = _block_bound(x, folded)
         k2_ms[name] = _in_turns(
-            lambda: dense_block_strip.dense_block_strip(x, folded),
-            lambda: dense_block_strip.dense_block_strip_reference(x, folded), iters=10)
-        print(f"{tag} K2 {name} (1, {h}, {w}, {c0}) L={layers} bf16: median "
-              f"{k2_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
-              f"{k2_ms[name][1]:.4f} ms (20 iterations each, in turns); bound "
+            lambda: dense_block_strip.dense_block_strip(x, folded, packed),
+            lambda: dense_block_strip.dense_block_strip_reference(x, folded),
+            lambda: dense_block_strip.pack_layer_weights(folded), iters=10)
+        print(f"{tag} K2 {name} (1, {h}, {w}, {c0}) L={layers} bf16, weights packed "
+              f"beforehand: median {k2_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
+              f"{k2_ms[name][1]:.4f} ms; the packing (pack_layer_weights, once per fold) "
+              f"{k2_ms[name][2]:.4f} ms (20 iterations each, in turns); bound "
               f"{block_bound[name][0]:.4f} ms ({block_bound[name][1]})")
         k5_ms[name] = _in_turns(
-            lambda: dense_block_strip.dense_block_strip_recompute(x, folded),
+            lambda: dense_block_strip.dense_block_strip_recompute(x, folded, packed),
             lambda: dense_block_strip.dense_block_strip_reference(x, folded),
-            lambda: dense_block_strip.dense_block_strip(x, folded), iters=10)
-        rows5, strips5, blocks5 = dense_block_strip.plan_strips(h, w, layers, sms)
-        print(f"{tag} K5 {name} (1, {h}, {w}, {c0}) L={layers} bf16, {strips5} strips of "
+            lambda: dense_block_strip.dense_block_strip(x, folded, packed), iters=10)
+        rows5, strips5, blocks5 = dense_block_strip.plan_strips(
+            h, w, layers, sms, dense_block_strip.LAYER_BLOCKS_PER_SM)
+        print(f"{tag} K5 {name} (1, {h}, {w}, {c0}) L={layers} bf16, weights packed "
+              f"beforehand, {strips5} strips of "
               f"{rows5} rows, {blocks5} blocks, work "
               f"{_k5_recompute(h, layers, rows5):.4f}x the block's rows: median "
               f"{k5_ms[name][0]:.4f} ms; plain "
@@ -876,16 +950,19 @@ def main() -> int:
     for name, (h, w, c0, layers) in K4_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device,
                                batch=256)
+        packed = dense_block_strip.pack_layer_weights(folded)
         k4_bound[name] = _block_bound(x, folded)
         # the model's own plain loop, which K4 replaces on the opt-in path
         block = DenseBlock(layers, c0, 4, 32, 0.0).to(device).eval()
         x_nchw = x.permute(0, 3, 1, 2)          # channels_last, as the model holds it
         with torch.inference_mode():
             k4_ms[name] = _in_turns(
-                lambda: dense_block.dense_block(x, folded),
+                lambda: dense_block.dense_block(x, folded, packed),
                 lambda: dense_block.dense_block_reference(x, folded),
                 lambda: block(x_nchw), iters=5)
-        print(f"{tag} K4 {name} (256, {h}, {w}, {c0}) L={layers} bf16: median "
+        tile = dense_block.block_plan(256, h, w, sms).tile
+        print(f"{tag} K4 {name} (256, {h}, {w}, {c0}) L={layers} bf16, {tile[0]}x{tile[1]} "
+              f"tiles, weights packed beforehand: median "
               f"{k4_ms[name][0]:.4f} ms; plain version ({PLAIN_BLOCK}) "
               f"{k4_ms[name][1]:.4f} ms; the model's plain loop (cuDNN bf16 convs, BN "
               f"in bf16) {k4_ms[name][2]:.4f} ms (10 iterations each, in turns); bound "
@@ -925,9 +1002,9 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": worst["K2"],
          "ms": k2_ms["block1"][0], "plain_ms": k2_ms["block1"][1],
          "bound_ms": block_bound["block1"][0], "bound_by": block_bound["block1"][1],
-         "library_ms": LIBRARY_MS,
+         "library_ms": LIBRARY_MS, "pack_ms": k2_ms["block1"][2],
          "ms_block2": k2_ms["block2"][0], "plain_ms_block2": k2_ms["block2"][1],
-         "bound_ms_block2": block_bound["block2"][0]},
+         "bound_ms_block2": block_bound["block2"][0], "pack_ms_block2": k2_ms["block2"][2]},
         {"name": "phase_head", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/phase_head.cu",
          "replaces": "dmmfods_tpu/ops/pallas/phase_head.py:246",

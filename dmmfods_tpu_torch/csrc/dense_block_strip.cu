@@ -76,18 +76,17 @@ namespace {
 constexpr int kTH = 8;                       // output tile rows
 constexpr int kTW = 16;                      // output tile columns
 
-template <typename T>
 __global__ void __launch_bounds__(kLayerThreads, 1)
-dense_layer_kernel(T* __restrict__ buf, const float* __restrict__ g1,
-                   const float* __restrict__ b1, const T* __restrict__ w1,
+dense_layer_kernel(float* __restrict__ buf, const float* __restrict__ g1,
+                   const float* __restrict__ b1, const float* __restrict__ w1,
                    const float* __restrict__ g2, const float* __restrict__ b2,
-                   const T* __restrict__ w3, int H, int W, int cmax, int width,
+                   const float* __restrict__ w3, int H, int W, int cmax, int width,
                    int K, int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ImageFrame<T> frame{buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H, W,
-                            cmax};
-  dense_layer_tile<T, kTH, kTW>(smem_raw, frame, width, K, G, blockIdx.y * kTH,
-                                blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
+  const ImageFrame<float> frame{buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H,
+                                W, cmax};
+  dense_layer_tile<kTH, kTW>(smem_raw, frame, width, K, G, blockIdx.y * kTH,
+                             blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
 }
 
 using LayerPlan = LayerMma<kTH, kTW>;
@@ -101,8 +100,8 @@ dense_layer_mma_kernel(__nv_bfloat16* buf, const float* __restrict__ g1,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const ImageFrame<__nv_bfloat16> frame{
       buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H, W, cmax};
-  dense_layer_mma<kTH, kTW>(smem_raw, frame, width, K, G, blockIdx.y * kTH,
-                            blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
+  const LayerArgs args{width, K, G, g1, b1, w1, g2, b2, w3};
+  dense_layer_mma<kTH, kTW>(smem_raw, frame, args, blockIdx.y * kTH, blockIdx.x * kTW);
 }
 
 // the block input into channels [0, c0) of the buffer
@@ -117,9 +116,9 @@ int run_block_f32(const void* x, void* out, const float* g1, const float* b1,
                   const void* w1, const float* g2, const float* b2, const void* w3,
                   int B, int H, int W, int c0, int L, int G, int K, cudaStream_t s) {
   const int cmax = c0 + L * G;
-  const size_t smem = LayerTile<kTH, kTW>::smem_bytes<float>();
+  const size_t smem = LayerTile<kTH, kTW>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_layer_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dense_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (int rc = copy_input(x, out, B, H, W, c0, cmax, sizeof(float), s)) return rc;
@@ -127,7 +126,7 @@ int run_block_f32(const void* x, void* out, const float* g1, const float* b1,
   const float* w1t = static_cast<const float*>(w1);
   const float* w3t = static_cast<const float*>(w3);
   for (int l = 0; l < L; ++l) {
-    dense_layer_kernel<float><<<grid, kLayerThreads, smem, s>>>(
+    dense_layer_kernel<<<grid, kLayerThreads, smem, s>>>(
         static_cast<float*>(out), g1 + static_cast<int64_t>(l) * cmax,
         b1 + static_cast<int64_t>(l) * cmax, w1t + static_cast<int64_t>(l) * cmax * K,
         g2 + static_cast<int64_t>(l) * K, b2 + static_cast<int64_t>(l) * K,

@@ -1,17 +1,20 @@
 // One dense layer of a DenseNet block over one TH x TW output tile, in bf16
-// on the tensor cores: the layer body of K2's bf16 kernel
-// (csrc/dense_block_strip.cu). It computes what csrc/dense_layer_tile.cuh
-// computes, with BN folded into per-channel (gamma, beta) and width = c0 +
-// l * G,
+// on the tensor cores: the layer body of the bf16 kernels of K2
+// (csrc/dense_block_strip.cu, 8x16 tiles), K4 (csrc/dense_block.cu, 8x16,
+// 8x12 or 4x6) and K5 (csrc/dense_block_recompute.cu, 8x16). It computes
+// what csrc/dense_layer_tile.cuh computes in f32, with BN folded into
+// per-channel (gamma, beta) and width = c0 + l * G,
 //
 //   act = ReLU(img[..., :width] * g1 + b1)            rounded to bf16
 //   y1  = act @ w1                                    f32 accumulation
 //   y2  = ReLU(y1 * g2 + b2), zero outside the frame  rounded to bf16
 //   img[..., width:width + G] = conv3x3(y2, w3)        f32 accumulation
 //
-// with the same Frame interface (inside(y, x), at(y, x): see
-// dense_layer_tile.cuh), so K4's ImageFrame and K5's StripFrame can run it
-// as they are. Only channels [0, width) of a pixel are read.
+// through a Frame (inside(y, x), at(y, x): see dense_layer_tile.cuh): K2's
+// and K4's ImageFrame, K5's StripFrame. Only channels [0, width) of a pixel
+// are read. Each output pixel's sums run in one order (the prefix's chunks,
+// then the taps, each over K in steps of 16) whatever the tile's origin and
+// whichever warp holds it, so K2 and K5 give the same bits.
 //
 // What bounds it on an H100: at block 1 of the 1280x1920 frame one block
 // call does about 102 GFLOP (116 with the ring) and must move about 0.1 GB:
@@ -29,7 +32,15 @@
 //     the chunk's 32 rows of w1 read straight in bf16;
 //   * runs the 3x3 as an implicit GEMM, nine taps of (output pixels x 128)
 //     @ (128 x G), its A rows the tap's shifted pixels of y2 in shared
-//     memory, the taps of w3 streamed two at a time through the freed ring;
+//     memory, the taps of w3 streamed two at a time through the freed ring.
+//     Its work is dealt over the 8 warps in units of one m16 tile of output
+//     pixels (padded to a multiple of 16 with rows that are computed and
+//     never stored) by one n8 pair of G, each warp's units of one m16 tile,
+//     so one A fragment feeds them all: 8x16 has 8 m16 tiles, 16 units,
+//     each warp both pairs of one tile (K2's split); 8x12 has 6 m16 tiles,
+//     12 units, warps 0-5 both pairs of one tile, warps 6-7 idle, the same
+//     two units a warp at most; 4x6 (24 pixels) has 2 m16 tiles, 4 units,
+//     warps 0-3 one pair each;
 //   * needs w1 and w3 packed with K padded to 128 and G to 32 (zeros) by
 //     ops/dense_block_strip.py::pack_layer_weights, so every K <= 128 and G
 //     <= 32 the callers accept runs; the padded columns cost products, not
@@ -38,16 +49,17 @@
 //     at most 128 registers a thread), so one block's staging runs under
 //     the other's products.
 // The 1x1 is recomputed on the halo ring (180 / 128 = 1.41x at 8x16, with
-// the M padding 1.5x). What bounds it now (K2 on an H100 at 700 W: ~1 ms a
-// block call, 11-17x the bound, by variants with one part removed): the
-// BN1 pass, the 3x3 with its tap loads and the waits for each chunk, not
-// the 1x1's MMAs. The float32 kernels keep the CUDA-core body: f32 is the
-// check type, and TF32 tensor cores would not meet its 1e-4 bound.
+// the M padding 1.5x). What bounds it now (K2 ~1 ms a block call at
+// 1280x1920, 9-14x the bound; K4 0.65-2.3 ms at b256, 8-25x; K5 1.05-1.2
+// ms; on an H100 at 700 W, by variants with one part removed): no one
+// part. Removing the BN1 pass saves 14-27%, the 1x1's MMAs 11-21%, the
+// 3x3's MMAs 5-22%; the rest is the latency of each chunk's staging and
+// barriers. The float32 kernels keep the CUDA-core body: f32 is the check
+// type, and TF32 tensor cores would not meet its 1e-4 bound.
 #pragma once
 
 #include <stdint.h>
 
-#include "dtype.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -63,11 +75,11 @@ struct LayerMma {
   static constexpr int kWarpMT1 = (kMT1 + 1) / 2;    // per warp: 2 warps over M
   static constexpr int kNP = kMT1 * 16;              // staged rows
   static constexpr int kOut = TH * TW;               // output pixels: the 3x3's M
-  static constexpr int kMT3 = kOut / 16;             // its m16 tiles
-  static constexpr int kWarpsPerMT3 = 8 / kMT3;      // warps sharing one
-  static constexpr int kNT3 = 4 / kWarpsPerMT3;      // n8 tiles of G per warp
-  static_assert(kOut % 16 == 0 && 8 % kMT3 == 0 && kNT3 % 2 == 0,
-                "the 3x3's output pixels split over the 8 warps");
+  static constexpr int kMT3 = (kOut + 15) / 16;      // its m16 tiles, the last padded
+  static constexpr int kUnits = kMT3 * (kG / 16);    // (m16 tile, n8 pair) units
+  static constexpr int kWarpUnits = (kUnits + 7) / 8;  // per warp, all of one m16 tile
+  static constexpr int kWarpsPerMT3 = (kG / 16) / kWarpUnits;  // warps sharing one
+  static_assert(kMT3 <= 8, "the 3x3's m16 tiles over the 8 warps");
   static constexpr int kCK = 32;                     // prefix channels per chunk
   static constexpr int kAS = kCK + 8;                // row strides in bf16, each
   static constexpr int kWS = kK + 8;                 //   conflict-free for
@@ -78,19 +90,45 @@ struct LayerMma {
   static constexpr int kRingBytes = 2 * kStageBytes > 4 * kTapBytes ? 2 * kStageBytes
                                                                     : 4 * kTapBytes;
   static constexpr size_t kSmem = kRingBytes + size_t(kHalo) * kWS * 2;  // + y2
+  // two blocks an SM: 228 KB of shared memory, 1 KB of it reserved a block
+  static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
 };
 
+// What a layer call reads besides its frame and tile: the layer's width, K
+// and G and its layer-sliced operands, g1, b1 (width), g2, b2 (K) in f32, w1
+// (rows >= width rounded up to 32, 128) and w3 (9, 128, 32) packed in bf16.
+// K2's kernel builds it from its parameters. K4's and K5's kernels, whose
+// one launch walks layers and tiles, keep it (and their frame) in shared
+// memory: the body reads each field where it uses it, and since every
+// __syncthreads() makes the compiler load shared memory anew, it holds no
+// register for them across its accumulators, which fill the 128 registers
+// of two blocks an SM.
+struct LayerArgs {
+  int width, K, G;
+  const float* g1;
+  const float* b1;
+  const __nv_bfloat16* w1;
+  const float* g2;
+  const float* b2;
+  const __nv_bfloat16* w3;
+};
+
+// threadIdx.x, read by an instruction the compiler may not move: a caller
+// that loops over tiles cannot hoist what the body derives from it (the
+// 3x3's rows, the staging offsets) out of its loop and hold it across the
+// 1x1's accumulators.
+__device__ __forceinline__ int thread_index() {
+  int tid;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  return tid;
+}
+
 // The layer over the tile whose top-left output pixel is (y0, x0) of the
-// pixels of `frame`. Layer-sliced operands: g1, b1 (width), g2, b2 (K) in
-// f32; w1 (rows >= width rounded up to 32, 128) and w3 (9, 128, 32) packed
-// in bf16. Ends with a barrier, so a block may call it again at once for
-// another tile.
+// pixels of `frame`, with `args` as above. Ends with a barrier, so a block
+// may call it again at once for another tile.
 template <int TH, int TW, typename Frame>
-__device__ __forceinline__ void dense_layer_mma(
-    unsigned char* smem, const Frame& frame, int width, int K, int G, int y0, int x0,
-    const float* __restrict__ g1, const float* __restrict__ b1,
-    const __nv_bfloat16* __restrict__ w1, const float* __restrict__ g2,
-    const float* __restrict__ b2, const __nv_bfloat16* __restrict__ w3) {
+__device__ __forceinline__ void dense_layer_mma(unsigned char* smem, const Frame& frame,
+                                                const LayerArgs& args, int y0, int x0) {
   using bf16 = __nv_bfloat16;
   using P = LayerMma<TH, TW>;
   constexpr int kHW = P::kHW;
@@ -101,15 +139,17 @@ __device__ __forceinline__ void dense_layer_mma(
   constexpr int kGS = P::kGS;
   bf16* y2s = reinterpret_cast<bf16*>(smem + P::kRingBytes);   // [kHalo][kWS]
 
-  const int tid = threadIdx.x;
+  const int tid = thread_index();
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int arow = lane & 15;             // the lane's ldmatrix row
   const int acol = (lane >> 4) * 8;       // and column
-  const int nchunks = (width + kCK - 1) / kCK;
+  const int nchunks = (args.width + kCK - 1) / kCK;
 
   // ---- the prefix's chunk j and w1's rows for it into ring slot j % 2 ------
   auto load_chunk = [&](int j) {
+    const int width = args.width;
+    const bf16* w1 = args.w1;
     bf16* act = reinterpret_cast<bf16*>(smem + (j & 1) * P::kStageBytes);
     bf16* w1s = reinterpret_cast<bf16*>(smem + (j & 1) * P::kStageBytes + P::kActBytes);
     const int c0 = j * kCK;
@@ -166,6 +206,9 @@ __device__ __forceinline__ void dense_layer_mma(
         reinterpret_cast<const bf16*>(smem + (j & 1) * P::kStageBytes + P::kActBytes);
     // BN1 + ReLU in place, rounded to bf16; zero off the frame and past width
     for (int e = tid; e < P::kNP * (kCK / 8); e += P::kThreads) {
+      const int width = args.width;
+      const float* g1 = args.g1;
+      const float* b1 = args.b1;
       const int p = e / (kCK / 8);
       const int c = j * kCK + (e % (kCK / 8)) * 8;
       bf16* d = act + p * kAS + (c - j * kCK);
@@ -204,6 +247,7 @@ __device__ __forceinline__ void dense_layer_mma(
 
   // ---- w3's taps, two at a time, into the ring's two slots ------------------
   auto load_taps = [&](int pair) {
+    const bf16* w3 = args.w3;
     bf16* slot = reinterpret_cast<bf16*>(smem + (pair & 1) * 2 * P::kTapBytes);
     for (int t = 2 * pair; t < 2 * pair + 2 && t < 9; ++t)
       for (int e = tid; e < P::kK * (P::kG / 8); e += P::kThreads) {
@@ -219,6 +263,9 @@ __device__ __forceinline__ void dense_layer_mma(
   cp_async_commit();
 
   // ---- BN2 + ReLU + the frame mask -> y2 in shared memory ------------------
+  const int K = args.K;
+  const float* g2 = args.g2;
+  const float* b2 = args.b2;
 #pragma unroll
   for (int i = 0; i < P::kWarpMT1; ++i)
 #pragma unroll
@@ -238,33 +285,40 @@ __device__ __forceinline__ void dense_layer_mma(
       }
     }
 
-  // ---- 3x3 over y2: warp -> m16 tile of output pixels, kNT3 n8 tiles of G --
+  // ---- 3x3 over y2: warp -> m16 tile mt3 of output pixels by kWU n8 pairs
+  // of G from npair0 (see the top), one A fragment for all ------------------
+  constexpr int kWU = P::kWarpUnits;
   const int mt3 = warp / P::kWarpsPerMT3;
-  const int nt0 = (warp % P::kWarpsPerMT3) * P::kNT3;
-  const int o = mt3 * 16 + arow;          // the lane's A row: an output pixel
+  const int npair0 = (warp % P::kWarpsPerMT3) * kWU;
+  const bool live = mt3 < P::kMT3;        // else the warp waits at the barriers
+  int o = mt3 * 16 + arow;                // the lane's A row: an output pixel,
+  o = o < P::kOut ? o : P::kOut - 1;      //   a padded row reading a real one
   const int opix = (o / TW) * kHW + o % TW;
-  float acc2[P::kNT3][4];
+  float acc2[kWU][2][4];
 #pragma unroll
-  for (int t = 0; t < P::kNT3; ++t)
+  for (int i = 0; i < kWU; ++i)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc2[t][r] = 0.f;
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc2[i][t][r] = 0.f;
   for (int pair = 0; pair < 5; ++pair) {
     cp_async_wait<1>();                   // this pair has landed
     __syncthreads();                      // for every thread (and y2 is complete)
     const bf16* slot = reinterpret_cast<const bf16*>(smem + (pair & 1) * 2 * P::kTapBytes);
     for (int t = 2 * pair; t < 2 * pair + 2 && t < 9; ++t) {
       const bf16* w3s = slot + (t & 1) * P::kK * kGS;
-      const bf16* arow_ptr = y2s + (opix + (t / 3) * kHW + t % 3) * kWS + acol;
+      const int shift = (t / 3) * kHW + t % 3;
+      if (!live) continue;
 #pragma unroll
       for (int ks = 0; ks < P::kK / 16; ++ks) {
         uint32_t a[4];
-        ldsm_x4(a, arow_ptr + ks * 16);
+        ldsm_x4(a, y2s + (opix + shift) * kWS + acol + ks * 16);
 #pragma unroll
-        for (int np = 0; np < P::kNT3 / 2; ++np) {
+        for (int i = 0; i < kWU; ++i) {
           uint32_t bw[4];
-          ldsm_x4_trans(bw, w3s + (ks * 16 + arow) * kGS + (nt0 + 2 * np) * 8 + acol);
-          mma_bf16(acc2[2 * np], a, bw[0], bw[1]);
-          mma_bf16(acc2[2 * np + 1], a, bw[2], bw[3]);
+          ldsm_x4_trans(bw, w3s + (ks * 16 + arow) * kGS + (npair0 + i) * 16 + acol);
+          mma_bf16(acc2[i][0], a, bw[0], bw[1]);
+          mma_bf16(acc2[i][1], a, bw[2], bw[3]);
         }
       }
     }
@@ -278,14 +332,17 @@ __device__ __forceinline__ void dense_layer_mma(
     const int oo = mt3 * 16 + (lane >> 2) + 8 * hf;
     const int gy = y0 + oo / TW;
     const int gx = x0 + oo % TW;
-    if (!frame.inside(gy, gx)) continue;
-    bf16* dst = frame.at(gy, gx) + width;
+    if (!live || oo >= P::kOut || !frame.inside(gy, gx)) continue;
+    const int G = args.G;
+    bf16* dst = frame.at(gy, gx) + args.width;
 #pragma unroll
-    for (int t = 0; t < P::kNT3; ++t) {
-      const int g = (nt0 + t) * 8 + 2 * (lane & 3);
-      if (g < G) dst[g] = __float2bfloat16(acc2[t][2 * hf]);
-      if (g + 1 < G) dst[g + 1] = __float2bfloat16(acc2[t][2 * hf + 1]);
-    }
+    for (int i = 0; i < kWU; ++i)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int g = ((npair0 + i) * 2 + t) * 8 + 2 * (lane & 3);
+        if (g < G) dst[g] = __float2bfloat16(acc2[i][t][2 * hf]);
+        if (g + 1 < G) dst[g + 1] = __float2bfloat16(acc2[i][t][2 * hf + 1]);
+      }
   }
   __syncthreads();                        // the ring and y2 free for the next tile
 }

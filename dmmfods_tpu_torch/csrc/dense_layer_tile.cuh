@@ -1,14 +1,17 @@
-// One dense layer of a DenseNet block over one TH x TW output tile: the body
-// shared by K2 (csrc/dense_block_strip.cu: one tile per block, one launch per
-// layer), K4 (csrc/dense_block.cu: one launch per block, each block looping
-// over the layers and its tiles) and K5 (csrc/dense_block_recompute.cu: the
-// same over a strip's window). With BN folded into per-channel (gamma, beta)
-// and width = c0 + l * G it computes
+// One dense layer of a DenseNet block over one TH x TW output tile, in f32 on
+// the CUDA cores: the body of the float32 kernels of K2
+// (csrc/dense_block_strip.cu: one tile per block, one launch per layer), K4
+// (csrc/dense_block.cu: one launch per block, each block looping over the
+// layers and its tiles) and K5 (csrc/dense_block_recompute.cu: the same over
+// a strip's window). Their bf16 kernels run csrc/dense_layer_mma.cuh on the
+// tensor cores; f32 is the check type, and TF32 tensor cores would not meet
+// its 1e-4 bound. With BN folded into per-channel (gamma, beta) and
+// width = c0 + l * G it computes
 //
-//   act = ReLU(img[..., :width] * g1 + b1)            rounded to T
-//   y1  = act @ w1                                    f32 accumulation
-//   y2  = ReLU(y1 * g2 + b2), zero outside the frame  rounded to T
-//   img[..., width:width + G] = conv3x3(y2, w3)        f32 accumulation
+//   act = ReLU(img[..., :width] * g1 + b1)
+//   y1  = act @ w1
+//   y2  = ReLU(y1 * g2 + b2), zero outside the frame
+//   img[..., width:width + G] = conv3x3(y2, w3)
 //
 // for the tile's output pixels. A Frame says where the layer's pixels are
 // and which it may touch: ImageFrame the whole image of one buffer (K2, K4),
@@ -25,7 +28,7 @@
 //      matching 32 rows of w1, and accumulate the 1x1 in f32 registers
 //      (kPI pixels x 8 channels per thread);
 //   2. apply BN2 + ReLU + the image mask and keep y2 for the whole halo in
-//      shared memory (halo x 128, in T);
+//      shared memory (halo x 128);
 //   3. run the 3x3 from shared memory, one tap of w3 staged at a time
 //      (kOI pixels x 4 channels per thread), and store the G new channels.
 // The 1x1 is recomputed on the halo ring. K <= 128 and G <= 32 are the
@@ -33,8 +36,6 @@
 #pragma once
 
 #include <stdint.h>
-
-#include "dtype.cuh"
 
 namespace {
 
@@ -44,7 +45,8 @@ constexpr int kKS = kKMax + 2;               // y2 row stride
 constexpr int kGMax = 32;                    // growth rate G
 constexpr int kCK = 32;                      // prefix channels staged per step
 
-// The whole H x W image of cmax channels at img, NHWC.
+// The whole H x W image of cmax channels at img, NHWC (T: float or
+// __nv_bfloat16, the bf16 body's too).
 template <typename T>
 struct ImageFrame {
   T* img;
@@ -71,11 +73,7 @@ struct LayerTile {
       (kCK * kNPS + kCK * kKMax) > (kKMax * kGMax) ? (kCK * kNPS + kCK * kKMax)
                                                    : (kKMax * kGMax);
   static_assert(kOut <= 128 && kNP <= 192, "tile too large for the register plan");
-
-  template <typename T>
-  static constexpr size_t smem_bytes() {
-    return kStageFloats * sizeof(float) + kHalo * kKS * sizeof(T);
-  }
+  static constexpr size_t kSmem = (kStageFloats + kHalo * kKS) * sizeof(float);
 };
 
 // The layer over the tile whose top-left output pixel is (y0, x0) of the
@@ -83,12 +81,12 @@ struct LayerTile {
 // operands: g1, b1 (cmax) and w1 (cmax, K) from the layer's row, g2, b2 (K),
 // w3 (3, 3, K, G). Ends with a barrier, so a block may call it again at once
 // for another tile.
-template <typename T, int TH, int TW, typename Frame>
+template <int TH, int TW, typename Frame>
 __device__ __forceinline__ void dense_layer_tile(
     unsigned char* smem_raw, const Frame& frame, int width, int K, int G,
     int y0, int x0, const float* __restrict__ g1, const float* __restrict__ b1,
-    const T* __restrict__ w1, const float* __restrict__ g2,
-    const float* __restrict__ b2, const T* __restrict__ w3) {
+    const float* __restrict__ w1, const float* __restrict__ g2,
+    const float* __restrict__ b2, const float* __restrict__ w3) {
   using Tile = LayerTile<TH, TW>;
   constexpr int kHW = Tile::kHW;
   constexpr int kHalo = Tile::kHalo;
@@ -99,7 +97,7 @@ __device__ __forceinline__ void dense_layer_tile(
   float* acts = stage;                       // [kCK][kNPS]
   float* w1s = stage + kCK * kNPS;           // [kCK][kKMax]
   float* w3s = stage;                        // [kKMax][kGMax], after the 1x1
-  T* y2s = reinterpret_cast<T*>(stage + Tile::kStageFloats);  // [kHalo][kKS]
+  float* y2s = stage + Tile::kStageFloats;   // [kHalo][kKS]
 
   const int tid = threadIdx.x;
 
@@ -122,8 +120,7 @@ __device__ __forceinline__ void dense_layer_tile(
         const int gy = y0 - 1 + p / kHW;
         const int gx = x0 - 1 + p % kHW;
         if (frame.inside(gy, gx)) {
-          const float xv = to_f32(frame.at(gy, gx)[c]);
-          v = round_to<T>(fmaxf(fmaf(xv, g1[c], b1[c]), 0.f));
+          v = fmaxf(fmaf(frame.at(gy, gx)[c], g1[c], b1[c]), 0.f);
         }
       }
       acts[kk * kNPS + p] = v;
@@ -132,7 +129,7 @@ __device__ __forceinline__ void dense_layer_tile(
       const int kk = e / kKMax;
       const int k = e % kKMax;
       const int c = c0 + kk;
-      w1s[e] = (c < width && k < K) ? to_f32(w1[static_cast<int64_t>(c) * K + k]) : 0.f;
+      w1s[e] = (c < width && k < K) ? w1[static_cast<int64_t>(c) * K + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -163,7 +160,7 @@ __device__ __forceinline__ void dense_layer_tile(
       const int k = tk + 16 * j;
       if (k >= K) continue;
       const float v = inside ? fmaxf(fmaf(acc[i][j], g2[k], b2[k]), 0.f) : 0.f;
-      y2s[p * kKS + k] = from_f32<T>(v);
+      y2s[p * kKS + k] = v;
     }
   }
 
@@ -185,11 +182,11 @@ __device__ __forceinline__ void dense_layer_tile(
 
   for (int tap = 0; tap < 9; ++tap) {
     __syncthreads();  // y2s complete (tap 0) / w3s free (later taps)
-    const T* w3t = w3 + static_cast<int64_t>(tap) * K * G;
+    const float* w3t = w3 + static_cast<int64_t>(tap) * K * G;
     for (int e = tid; e < kKMax * kGMax; e += kLayerThreads) {
       const int k = e / kGMax;
       const int g = e % kGMax;
-      w3s[e] = (k < K && g < G) ? to_f32(w3t[k * G + g]) : 0.f;
+      w3s[e] = (k < K && g < G) ? w3t[k * G + g] : 0.f;
     }
     __syncthreads();
     const int shift = (tap / 3) * kHW + (tap % 3);
@@ -198,7 +195,7 @@ __device__ __forceinline__ void dense_layer_tile(
 #pragma unroll
       for (int j = 0; j < 4; ++j) wv[j] = w3s[k * kGMax + tg + 8 * j];
 #pragma unroll
-      for (int i = 0; i < Tile::kOI; ++i) yv[i] = to_f32(y2s[(base[i] + shift) * kKS + k]);
+      for (int i = 0; i < Tile::kOI; ++i) yv[i] = y2s[(base[i] + shift) * kKS + k];
 #pragma unroll
       for (int i = 0; i < Tile::kOI; ++i)
 #pragma unroll
@@ -212,11 +209,11 @@ __device__ __forceinline__ void dense_layer_tile(
     const int gy = y0 + o / TW;
     const int gx = x0 + o % TW;
     if (o >= Tile::kOut || !frame.inside(gy, gx)) continue;
-    T* dst = frame.at(gy, gx) + width;
+    float* dst = frame.at(gy, gx) + width;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int g = tg + 8 * j;
-      if (g < G) dst[g] = from_f32<T>(acc2[i][j]);
+      if (g < G) dst[g] = acc2[i][j];
     }
   }
   __syncthreads();  // w3s (aliasing the next tile's staging) and y2s free

@@ -69,6 +69,7 @@ from ..ops.dense_block import dense_block, fold_block_params
 from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
 from ..ops.dense_block_strip import eligible as strip_eligible
+from ..ops.dense_block_strip import pack_layer_weights
 from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
 from ..ops.phase_head import kernel_weights as phase_head_weights
 from ..ops.phase_head import phase_head
@@ -243,6 +244,23 @@ def _bn_relu(x, norm):
     return F.relu(_bn(x, norm))
 
 
+def _fold_key(tensors):
+    """What a fold cache keys on: each tensor, an alias of the storage it had
+    (held, so no new tensor can take that address while the key lives) and
+    its version counter."""
+    return tuple((t, t.detach(), t._version) for t in tensors)
+
+
+def _same_tensors(key, tensors):
+    """Whether ``tensors`` are the very tensors of ``key`` (by identity), on
+    the storage they had and at the version they had: a parameter replaced,
+    moved, or edited in place fails it."""
+    tensors = tuple(tensors)
+    return len(tensors) == len(key) and all(
+        t is kept and t.data_ptr() == alias.data_ptr() and t._version == version
+        for t, (kept, alias, version) in zip(tensors, key))
+
+
 class DenseLayer(nn.Module):
     """BN-ReLU-Conv1x1-BN-ReLU-Conv3x3 bottleneck emitting ``growth_rate``
     new channels (torchvision ``_DenseLayer``)."""
@@ -269,15 +287,16 @@ class DenseBlock(nn.Module):
     reads the concat of the block input and every earlier layer's output.
     ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``,
     ``strip`` is ``ModelSpec.dense_block_strip``. The kernels' folded stacks
-    are kept between calls and folded again when a parameter or buffer of
-    the block changes (its storage or version counter)."""
+    and the bf16 kernels' packed w1 and w3 are kept between calls and made
+    again when a parameter or buffer of the block changes (replaced, moved or
+    edited in place: :func:`_same_tensors`)."""
 
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
                  drop_rate, impl="concat", strip="auto"):
         super().__init__()
         self.impl = impl
         self.strip = strip
-        self._folded = None                   # (key, fold_block_params(self))
+        self._folded = None                   # (key, folded stacks, packed w1 and w3)
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 num_input_features + i * growth_rate, growth_rate, bn_size,
@@ -288,24 +307,26 @@ class DenseBlock(nn.Module):
         then K4, else the loop."""
         if self._strip_eligible(x):
             run = dense_block_strip_recompute if self.strip == "on" else dense_block_strip
-            out = run(x.permute(0, 2, 3, 1).contiguous(), self._folded_params())
+            out = run(x.permute(0, 2, 3, 1).contiguous(), *self._kernel_operands())
             return out.permute(0, 3, 1, 2)
         if self._k4_eligible(x):
-            out = dense_block(x.permute(0, 2, 3, 1).contiguous(), self._folded_params())
+            out = dense_block(x.permute(0, 2, 3, 1).contiguous(), *self._kernel_operands())
             return out.permute(0, 3, 1, 2)
         features = x
         for layer in self.children():
             features = torch.cat([features, layer(features)], dim=1)
         return features
 
-    def _folded_params(self):
-        """``fold_block_params(self)``, from the cache while every parameter
-        and buffer is the same tensor at the same version."""
-        key = tuple((t.data_ptr(), t._version)
-                    for t in itertools.chain(self.parameters(), self.buffers()))
-        if self._folded is None or self._folded[0] != key:
-            self._folded = (key, fold_block_params(self))
-        return self._folded[1]
+    def _kernel_operands(self):
+        """``(folded, packed)``: ``fold_block_params(self)`` and its
+        ``pack_layer_weights``, made once per fold and kept while every
+        parameter and buffer is the very tensor it was, on the same storage,
+        at the same version."""
+        tensors = tuple(itertools.chain(self.parameters(), self.buffers()))
+        if self._folded is None or not _same_tensors(self._folded[0], tensors):
+            folded = fold_block_params(self)
+            self._folded = (_fold_key(tensors), folded, pack_layer_weights(folded))
+        return self._folded[1:]
 
     def _strip_eligible(self, x) -> bool:
         """JAX's ``DenseBlock._strip_eligible`` with the card in the TPU's
@@ -523,12 +544,13 @@ class Head(nn.Module):
     (:func:`..ops.phase_head.phase_head`) on NHWC views, so the upsample,
     the concat and the mid tensor never exist in memory. On the card its
     folded weights are kept between calls and folded again when the refine
-    weights change (their storage or version counter) or the dtype does."""
+    weights change (replaced, moved or edited in place: :func:`_same_tensors`)
+    or the dtype does."""
 
     def __init__(self, up_channels, raw_channels, mid_features, num_classes):
         super().__init__()
         self.up_channels = up_channels
-        self._k3_weights = None               # (key, kernel_weights(...))
+        self._k3_weights = None               # (dtype, key, kernel_weights(...))
         self.norm0 = _batch_norm(up_channels + raw_channels)
         self.refine0 = nn.Conv2d(up_channels + raw_channels, mid_features, 3,
                                  padding=1, bias=False)
@@ -552,15 +574,16 @@ class Head(nn.Module):
 
     def _kernel_weights(self, x_lo):
         """K3's folded weights for ``x_lo``'s dtype, from the cache while the
-        refine weights are the same tensors at the same version."""
+        refine weights are the very tensors they were, on the same storage, at
+        the same version."""
         w0, w1 = self.refine0.weight, self.refine1.weight
-        key = (x_lo.dtype, w0.device, w0.data_ptr(), w0._version, w1.data_ptr(),
-               w1._version)
-        if self._k3_weights is None or self._k3_weights[0] != key:
+        cached = self._k3_weights
+        if (cached is None or cached[0] != x_lo.dtype
+                or not _same_tensors(cached[1], (w0, w1))):
             with torch.no_grad():
                 weights = phase_head_weights(w0, w1, self.up_channels, x_lo.dtype)
-            self._k3_weights = (key, weights)
-        return self._k3_weights[1]
+            self._k3_weights = (x_lo.dtype, _fold_key((w0, w1)), weights)
+        return self._k3_weights[2]
 
     def _kernel_eligible(self, x_lo, raw) -> bool:
         h, w = raw.shape[-2:]

@@ -124,6 +124,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.dmm_stem_pool
     fn.argtypes = [p] * 5 + [ctypes.c_int] * 6 + [p]
     fn.restype = ctypes.c_int
+    fn = lib.dmm_dense_block_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [p]
+    fn.restype = ctypes.c_int
     for name in ("dmm_dense_layer_mma_smem", "dmm_phase_head_mma_smem"):
         fn = getattr(lib, name)
         fn.argtypes = []

@@ -6,7 +6,8 @@ K4 computes K2's function (:mod:`.dense_block_strip`) with K2's rounding.
 It differs in where it runs and how: it serves every batch size on the small
 planes of the 128x192 working resolution, and it runs a whole block in one
 launch, a thread-block cluster per image looping over the layers
-(``csrc/dense_block.cu``).
+(``csrc/dense_block.cu``) on K2's layer bodies, the bf16 one on the tensor
+cores with the weights of :func:`.dense_block_strip.pack_layer_weights`.
 
 * :func:`dense_block` is the wrapper. For a CUDA tensor it launches the
   kernel (or raises); for a CPU tensor it runs the plain version.
@@ -19,13 +20,19 @@ launch, a thread-block cluster per image looping over the layers
   that the port runs K4 on exactly the blocks where the JAX model runs its
   kernel on a TPU. The CUDA kernel itself takes any block shape; this gate
   is a choice of where to use it, not a limit of it.
+* :func:`block_plan` mirrors the kernel's launch plan: its tile, its
+  clusters and how the bf16 body deals a tile over its warps. The C entry
+  ``dmm_dense_block_plan`` reports the plan the kernel makes, and
+  ``chip_smoke.py`` holds the two together.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
-from .dense_block_strip import dense_block_strip_reference, run_block_kernel
+from .dense_block_strip import MAX_GROWTH, dense_block_strip_reference, run_block_kernel
 from .fused import LaunchCount, fold_bn
 
 K4_LAUNCHES = LaunchCount()
@@ -35,6 +42,74 @@ GROUP_BUDGET_BYTES = 20 * 1024 * 1024
 
 # K4's plain version is K2's: the two kernels compute one function
 dense_block_reference = dense_block_strip_reference
+
+# K4's tiles (csrc/dense_block.cu), largest first; its cluster cap (the
+# portable cluster size); the layer body's warps
+BLOCK_TILES = ((8, 16), (8, 12), (4, 6))
+MAX_CLUSTER = 8
+WARPS = 8
+
+
+class BlockPlan(NamedTuple):
+    """K4's launch plan for a batch of one plane (:func:`block_plan`)."""
+
+    tile: Tuple[int, int]      # (TH, TW)
+    tiles: int                 # tiles an image
+    cluster: int               # blocks an image: the cluster
+    m16_1x1: int               # the bf16 body's m16 tiles over the tile's halo
+    m16_3x3: int               # and over its output pixels, the last padded
+    units: int                 # the 3x3's (m16 tile, n8 pair) units
+    warp_units: int            # the most of them a warp runs
+    smem: int                  # the bf16 kernel's dynamic shared memory, bytes
+    warps: Tuple[Tuple[Tuple[int, int], ...], ...]   # each warp's units
+
+    def c_fields(self):
+        """The fields ``dmm_dense_block_plan`` reports, in its order."""
+        return (*self.tile, self.tiles, self.cluster, self.m16_1x1, self.m16_3x3,
+                self.units, self.warp_units, self.smem)
+
+
+def mma_smem(th, tw):
+    """The bf16 layer body's dynamic shared memory for a ``th`` x ``tw`` tile
+    (``LayerMma::kSmem`` of ``csrc/dense_layer_mma.cuh``): a two-slot ring of
+    the halo's 32-channel chunk beside 32 rows of w1 (or four taps of w3,
+    whichever is larger), then y2 over the halo; rows padded by 8 bf16."""
+    halo = (th + 2) * (tw + 2)
+    stage = -(-halo // 16) * 16 * (32 + 8) * 2 + 32 * (128 + 8) * 2
+    return max(2 * stage, 4 * 128 * (32 + 8) * 2) + halo * (128 + 8) * 2
+
+
+def block_plan(batch, h, w, sms):
+    """K4's launch plan for ``batch`` images of ``h`` x ``w`` on a card of
+    ``sms`` SMs, as ``csrc/dense_block.cu`` makes it. The tile is the one of
+    ``BLOCK_TILES`` with the least padded halo work (its tiles times the
+    1x1's M, the halo padded to 16 rows), the larger on a tie. The cluster is
+    the most blocks an image, up to ``MAX_CLUSTER`` and ``ceil(sms /
+    batch)``, that divide its tiles. The 3x3's units are (m16 tile, n8 pair
+    of G's 32); each warp runs ``warp_units`` of them, all of one m16 tile
+    (one A fragment): at most two a warp, as few warps to a tile as that
+    allows."""
+    def halo_m16(th, tw):
+        return -(-(th + 2) * (tw + 2) // 16)
+
+    def tiles_of(th, tw):
+        return -(-h // th) * -(-w // tw)
+
+    costs = [tiles_of(th, tw) * 16 * halo_m16(th, tw) for th, tw in BLOCK_TILES]
+    th, tw = BLOCK_TILES[costs.index(min(costs))]
+    tiles = tiles_of(th, tw)
+    want = min(-(-sms // batch), MAX_CLUSTER)
+    cluster = next((c for c in range(want, 1, -1) if tiles % c == 0), 1)
+    m16_3x3 = -(-th * tw // 16)
+    pairs = MAX_GROWTH // 16
+    units = m16_3x3 * pairs
+    warp_units = -(-units // WARPS)
+    per_tile = pairs // warp_units            # warps sharing an m16 tile
+    warps = tuple(
+        tuple((i // per_tile, (i % per_tile) * warp_units + j) for j in range(warp_units))
+        if i // per_tile < m16_3x3 else () for i in range(WARPS))
+    return BlockPlan((th, tw), tiles, cluster, halo_m16(th, tw), m16_3x3, units,
+                     warp_units, mma_smem(th, tw), warps)
 
 
 def fold_block_params(block):
@@ -106,13 +181,15 @@ def eligible(num_layers, c0, growth, bn_size, h, w, dtype_bytes=2, batch=1):
                       c0=c0, growth=growth, bn_size=bn_size) is not None
 
 
-def dense_block(x, folded):
+def dense_block(x, folded, packed=None):
     """The dense block of ``folded`` on ``x``: ``(B, H, W, c0)`` NHWC ->
-    ``(B, H, W, C_max)``, ``folded`` as from :func:`fold_block_params`.
+    ``(B, H, W, C_max)``, ``folded`` as from :func:`fold_block_params`,
+    ``packed`` its ``pack_layer_weights`` made beforehand or None (a bf16
+    call then packs).
 
     On a CUDA device ``x`` must be a contiguous NHWC tensor in float32 or
     bfloat16 and ``K <= 128``, ``G <= 32``; the whole block is one launch on
     the current stream, and a failure raises. On the CPU the plain version
     runs.
     """
-    return run_block_kernel(x, folded, "dmm_dense_block", K4_LAUNCHES)
+    return run_block_kernel(x, folded, "dmm_dense_block", K4_LAUNCHES, packed)

@@ -12,11 +12,12 @@ For each layer ``l`` (``width = c0 + l * G``), with BN folded:
   the block's output buffer is allocated once and each of the L layer
   launches writes its slab into it, so no concat is ever copied. In bfloat16
   its layers run on the tensor cores, with w1 and w3 laid out by
-  :func:`pack_layer_weights`.
+  :func:`pack_layer_weights` (as K4's and K5's bf16 kernels take them too).
 * :func:`dense_block_strip_recompute` (K5, the counterpart of JAX's
   ``dense_block_strip``) is the wrapper of ``csrc/dense_block_recompute.cu``:
   the same function in one launch, the plane cut into independent row
-  strips (:func:`plan_strips`) that recompute their halo.
+  strips (:func:`plan_strips`) that recompute their halo, on K2's layer
+  bodies and tile.
 * :func:`dense_block_strip_reference` is the plain PyTorch version of both,
   the textbook loop on the folded stacks. The CPU tests hold it against the
   JAX kernels (interpret mode), and ``chip_smoke.py`` holds the kernels
@@ -29,8 +30,11 @@ For each layer ``l`` (``width = c0 + l * G``), with BN folded:
 
 For a CUDA tensor the wrappers launch their kernel (or raise); for a CPU
 tensor they run the plain version. All take ``x`` as ``(B, H, W, c0)`` NHWC
-(K5: ``B = 1``) and ``folded`` as returned by
-:func:`.dense_block.fold_block_params`, and return ``(B, H, W, C_max)``.
+(K5: ``B = 1``), ``folded`` as returned by
+:func:`.dense_block.fold_block_params` and optionally ``packed``, the bf16
+kernels' ``pack_layer_weights(folded)`` made beforehand (the eval
+``DenseBlock`` keeps it beside its folded stacks; without it a bf16 call
+packs), and return ``(B, H, W, C_max)``.
 """
 
 from __future__ import annotations
@@ -46,13 +50,17 @@ K5_LAUNCHES = LaunchCount()
 # the kernels' shared-memory plan (csrc/dense_layer_tile.cuh: kKMax, kGMax)
 MAX_BOTTLENECK = 128
 MAX_GROWTH = 32
-# K2's bf16 layer kernel (csrc/dense_block_strip.cu, csrc/dense_layer_mma.cuh):
-# its tile, the blocks of it an SM holds, and the prefix channels of a chunk
+# The blocks of a layer body an SM holds: the tensor-core body
+# (csrc/dense_layer_mma.cuh, bf16) two, the CUDA-core body
+# (csrc/dense_layer_tile.cuh, f32) one
+BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
+# K2's bf16 layer kernel (csrc/dense_block_strip.cu): its tile, the blocks
+# of it an SM holds, and the prefix channels of a chunk
 LAYER_TILE = (8, 16)
-LAYER_BLOCKS_PER_SM = 2
+LAYER_BLOCKS_PER_SM = BLOCKS_PER_SM[torch.bfloat16]
 LAYER_CHUNK = 32
-# K5's output tile (csrc/dense_block_recompute.cu: kTH, kTW)
-TILE_ROWS, TILE_COLS = 8, 16
+# K5's output tile (csrc/dense_block_recompute.cu: kTH, kTW), K2's
+TILE_ROWS, TILE_COLS = LAYER_TILE
 
 # JAX's VMEM budget of a strip (a number of the gate, not of the card)
 STRIP_BUDGET_BYTES = 90 * 1024 * 1024
@@ -166,27 +174,30 @@ def eligible(batch, h, w, c0, growth, num_layers, bn_size, dtype_bytes=2, carry=
                        dtype_bytes) is not None)
 
 
-def plan_strips(h, w, num_layers, sms):
-    """K5's geometry on a card of ``sms`` SMs: ``(rows, strips, blocks)``.
+def plan_strips(h, w, num_layers, sms, blocks_per_sm):
+    """K5's geometry on a card of ``sms`` SMs whose layer body fits
+    ``blocks_per_sm`` blocks an SM (``BLOCKS_PER_SM`` of the dtype):
+    ``(rows, strips, blocks)``.
 
     Two strips of ``ceil(h / 2)`` rows rounded up to the tile's 8 (one strip
     where the plane is a single tile row), run by ``blocks`` blocks of one
-    cooperative launch, at most one per SM and none without a tile of the
-    first layer, shared out evenly over the strips. Halo rows are the only
-    extra work, so the fewest strips pay the least; one strip over the whole
-    plane would be K4's whole-image schedule with a barrier across the grid.
+    cooperative launch, all resident at once (at most ``blocks_per_sm`` an
+    SM) and none without a tile of the first layer, shared out evenly over
+    the strips. Halo rows are the only extra work, so the fewest strips pay
+    the least; one strip over the whole plane would be K4's whole-image
+    schedule with a barrier across the grid.
     """
     half = -(-h // 2)
     rows = max(TILE_ROWS, -(-half // TILE_ROWS) * TILE_ROWS)
     strips = -(-h // rows)
     first_layer_tiles = (-(-min(rows + 2 * (num_layers - 1), h) // TILE_ROWS)
                          * -(-w // TILE_COLS))
-    return rows, strips, min(sms, strips * first_layer_tiles)
+    return rows, strips, min(sms * blocks_per_sm, strips * first_layer_tiles)
 
 
 def pack_layer_weights(folded):
-    """K2's bf16 kernel's w1 and w3 from ``folded``'s: ``w1`` ``(L, C_max,
-    K)`` -> ``(L, cp, 128)`` with ``cp`` = C_max rounded up to
+    """The bf16 kernels' (K2, K4, K5) w1 and w3 from ``folded``'s: ``w1``
+    ``(L, C_max, K)`` -> ``(L, cp, 128)`` with ``cp`` = C_max rounded up to
     ``LAYER_CHUNK``, ``w3`` ``(L, 3, 3, K, G)`` -> ``(L, 9, 128, 32)``, in
     bf16 with zeros in the padding: every chunk of 32 rows is in bounds, and
     K and G are the tensor-core tiles' multiples."""
@@ -210,61 +221,63 @@ def layer_plan(h, w, sms):
     return tiles, tiles / (sms * LAYER_BLOCKS_PER_SM)
 
 
-def dense_block_strip(x, folded):
+def dense_block_strip(x, folded, packed=None):
     """K2: the dense block of ``folded`` on ``x`` (see the module docstring).
 
     On a CUDA device ``x`` must be a contiguous NHWC tensor in float32 or
     bfloat16 and ``K <= 128``, ``G <= 32``; the kernels launch on the current
     stream and a failure raises. On the CPU the plain version runs.
     """
-    return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES,
-                            weights=_layer_weights)
+    return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES, packed)
 
 
-def _layer_weights(folded, dtype):
-    """K2's w1 and w3: packed for the bf16 kernel, else as they are."""
-    if dtype == torch.bfloat16:
-        return pack_layer_weights(folded)
-    return _cast_weights(folded, dtype)
+def _check_packed(folded, packed):
+    """Raise unless ``packed`` is ``pack_layer_weights(folded)``'s layout."""
+    n, c_max, _ = folded["w1"].shape
+    want = ((n, -(-c_max // LAYER_CHUNK) * LAYER_CHUNK, MAX_BOTTLENECK),
+            (n, 9, MAX_BOTTLENECK, MAX_GROWTH))
+    for name, t, shape in zip(("w1", "w3"), packed, want):
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
+                or t.device != folded["w1"].device or not t.is_contiguous()):
+            raise ValueError(f"packed {name} must be a contiguous bfloat16 {shape} on "
+                             f"{folded['w1'].device}, got a {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
 
 
-def _cast_weights(folded, dtype):
-    """w1 and w3 in ``dtype``, as K4, K5 and K2 in float32 take them."""
-    return folded["w1"].to(dtype).contiguous(), folded["w3"].to(dtype).contiguous()
-
-
-def dense_block_strip_recompute(x, folded):
+def dense_block_strip_recompute(x, folded, packed=None):
     """K5: the dense block of ``folded`` on a batch-1 ``x`` as independent
     strips that recompute their halo, in one launch (see the module
     docstring). The same operands and limits as :func:`dense_block_strip`,
     with ``B = 1``; on the CPU the plain version runs."""
     if x.dim() == 4 and x.shape[0] != 1:
         raise ValueError(f"K5 runs a batch-1 plane, got x {tuple(x.shape)}")
-    return run_block_kernel(x, folded, "dmm_dense_block_recompute", K5_LAUNCHES,
+    return run_block_kernel(x, folded, "dmm_dense_block_recompute", K5_LAUNCHES, packed,
                             scratch=_recompute_scratch)
 
 
 def _recompute_scratch(x, num_layers, c0, growth, k, c_max):
     """K5's trailing arguments: the strips' private halo rows (L above and L
     below each strip) and their barrier counters, then the strip height and
-    the grid, planned for ``x``'s card."""
+    the grid, planned for ``x``'s card and dtype."""
     _, h, w, _ = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, strips, blocks = plan_strips(h, w, num_layers, sms)
+    rows, strips, blocks = plan_strips(h, w, num_layers, sms, BLOCKS_PER_SM[x.dtype])
     halo = torch.empty((strips, 2 * num_layers, w, c_max), dtype=x.dtype, device=x.device)
     arrive = torch.empty(strips, dtype=torch.int32, device=x.device)
     return halo, arrive, rows, blocks
 
 
-def run_block_kernel(x, folded, entry, count, scratch=None, weights=_cast_weights):
+def run_block_kernel(x, folded, entry, count, packed=None, scratch=None):
     """What K2, K4 and K5 share around their kernels: check the operands,
     take the plain version on the CPU, else allocate the output buffer,
     launch the C entry point ``entry`` of the kernel library on the current
-    stream, raise on its error and add one to ``count``. ``scratch``, where
+    stream, raise on its error and add one to ``count``. ``packed`` is the
+    bf16 kernels' w1 and w3 made beforehand, or None; ``scratch``, where
     given, maps ``(x, L, c0, G, K, C_max)`` to the arguments that follow the
-    common ones (tensors, passed by pointer, and ints); ``weights`` maps
-    ``(folded, dtype)`` to the kernel's w1 and w3."""
+    common ones (tensors, passed by pointer, and ints)."""
     n, c0, growth, k, c_max = _shapes(x, folded)
+    if packed is not None:
+        _check_packed(folded, packed)
     if x.device.type == "cpu":
         return dense_block_strip_reference(x, folded)
     if x.device.type != "cuda":
@@ -283,7 +296,10 @@ def run_block_kernel(x, folded, entry, count, scratch=None, weights=_cast_weight
     if out.numel() == 0:
         return out
     ops = {name: folded[name].contiguous() for name in ("g1", "b1", "g2", "b2")}
-    w1, w3 = weights(folded, x.dtype)
+    if x.dtype != torch.bfloat16:
+        w1, w3 = folded["w1"].contiguous(), folded["w3"].contiguous()
+    else:
+        w1, w3 = packed if packed is not None else pack_layer_weights(folded)
     with torch.cuda.device(x.device):
         extra = scratch(x, n, c0, growth, k, c_max) if scratch else ()
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -2,9 +2,11 @@
 the plain version against JAX's ``dense_block_pallas`` in interpret mode (the
 same code path the TPU runs) on one-image and packed sample groups; the
 port's eligibility against JAX's ``pick_group``/``eligible``, including the
-DenseNet-121 blocks at 128x192; the eval ``DenseBlock``'s dispatch with
-impl ``pallas``; the wrapper's argument checks; and that a CPU tensor takes
-the plain version. All in f32. The folded BN2 biases are drawn with both
+DenseNet-121 blocks at 128x192; the bf16 kernel's packed weights at K4's
+shapes and its tile and warp-split plan (``block_plan``); the eval
+``DenseBlock``'s dispatch with impl ``pallas`` and the packed pair it passes;
+the wrapper's argument checks; and that a CPU tensor takes the plain
+version. All in f32. The folded BN2 biases are drawn with both
 signs, so a pixel outside an image that is not masked after BN2 would add
 ReLU(b2) and show. Tolerance: atol 5e-4, the JAX kernel test's own
 (``tests/test_pallas_dense_block.py``), for f32 summation-order noise. The
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 from dmmfods_tpu.ops.pallas import dense_block as jax_k4
 from dmmfods_tpu_torch.models import dense_unet_lidar as pm
 from dmmfods_tpu_torch.ops import dense_block as k4
+from dmmfods_tpu_torch.ops.dense_block_strip import pack_layer_weights
 
 ATOL = 5e-4
 
@@ -93,6 +96,76 @@ def test_densenet121_blocks_that_run_k4_at_128x192():
         for module in (k4, jax_k4):
             assert sum(module.eligible(L, c0, 32, 4, h, w, 2, batch=batch)
                        for h, w, c0, L in blocks) == calls, (module.__name__, batch)
+
+
+@pytest.mark.parametrize("L,c0,growth", [
+    (3, 24, 8),        # ragged C_max (48 -> 64 packed rows), K 32, G 8
+    (24, 256, 32),     # DenseNet-121 block 3 (C_max 1024)
+    (16, 512, 32),     # DenseNet-121 block 4 (C_max 1024)
+    (1, 40, 12),       # one layer, K 48, G 12
+])
+def test_pack_layer_weights_at_k4_shapes(L, c0, growth):
+    """The bf16 kernels' packed w1 and w3 at K4's shapes unpack to the fold
+    rounded to bf16, with zeros in every padding."""
+    rng = np.random.default_rng(L * 1000 + c0)
+    k, c_max = 4 * growth, c0 + L * growth
+    folded = _torch(_folded(rng, L, c0, growth, k))
+    w1p, w3p = pack_layer_weights(folded)
+    assert tuple(w1p.shape) == (L, -(-c_max // 32) * 32, 128)
+    assert tuple(w3p.shape) == (L, 9, 128, 32)
+    assert w1p.dtype == w3p.dtype == torch.bfloat16
+    torch.testing.assert_close(w1p[:, :c_max, :k].float(),
+                               folded["w1"].to(torch.bfloat16).float(), atol=0, rtol=0)
+    torch.testing.assert_close(w3p[:, :, :k, :growth].float().reshape(L, 3, 3, k, growth),
+                               folded["w3"].to(torch.bfloat16).float(), atol=0, rtol=0)
+    assert not w1p[:, c_max:].any() and not w1p[..., k:].any()
+    assert not w3p[..., k:, :].any() and not w3p[..., growth:].any()
+
+
+# K4's plan on a 132-SM H100 for the four DenseNet-121 planes at 128x192:
+# (tile, tiles an image, 1x1 m16 tiles, 3x3 m16 tiles, units, most a warp
+# runs, the bf16 kernel's shared memory) and the cluster at b1, b8, b32, b256
+DENSENET121_PLANS = {
+    (32, 48): ((8, 16), 12, 12, 8, 16, 2, 97088, (6, 6, 4, 1)),
+    (16, 24): ((8, 12), 4, 9, 6, 12, 2, 79040, (4, 4, 4, 1)),
+    (8, 12): ((8, 12), 1, 9, 6, 12, 2, 79040, (1, 1, 1, 1)),
+    (4, 6): ((4, 6), 1, 3, 2, 4, 1, 54016, (1, 1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("hw", list(DENSENET121_PLANS))
+def test_block_plan_at_densenet121_planes(hw):
+    """K4's tile and warp split (``block_plan``, the mirror of
+    ``csrc/dense_block.cu``): 8x16 on 32x48, 8x12 on 16x24 and 8x12, 4x6 on
+    4x6; the warps' units cover every (m16 tile, n8 pair) once, each warp's
+    at most ``warp_units``, all of one m16 tile; 8x16 runs K2's split, each
+    warp both n8 pairs of one m16 tile; two blocks of any tile fit an SM's
+    228 KB."""
+    tile, tiles, m1, m3, units, per_warp, smem, clusters = DENSENET121_PLANS[hw]
+    for batch, cluster in zip((1, 8, 32, 256), clusters):
+        plan = k4.block_plan(batch, *hw, 132)
+        assert plan.c_fields() == (*tile, tiles, cluster, m1, m3, units, per_warp, smem)
+        assert tiles % plan.cluster == 0 and plan.cluster <= k4.MAX_CLUSTER
+    assert 2 * (smem + 1024) <= 228 * 1024
+    dealt = [u for warp in plan.warps for u in warp]
+    assert sorted(dealt) == [(m, n) for m in range(m3) for n in range(2)]
+    assert max(len(warp) for warp in plan.warps) == per_warp
+    assert all(len({m for m, _ in warp}) <= 1 for warp in plan.warps)   # one A fragment
+    assert (m1 - 1) * 16 < (tile[0] + 2) * (tile[1] + 2) <= m1 * 16
+    if tile == (8, 16):
+        assert plan.warps == tuple(((w, 0), (w, 1)) for w in range(8))
+
+
+def test_block_plan_picks_the_least_padded_halo_work():
+    """On any plane the plan's tile has the least tiles x padded halo rows of
+    the three, the larger tile on a tie (32x48: 8x16 and 8x12 tie)."""
+    for h in range(1, 41, 3):
+        for w in range(1, 61, 7):
+            plan = k4.block_plan(4, h, w, 132)
+            costs = {t: -(-h // t[0]) * -(-w // t[1]) * 16 * -(-(t[0] + 2) * (t[1] + 2) // 16)
+                     for t in k4.BLOCK_TILES}
+            assert costs[plan.tile] == min(costs.values())
+            assert plan.tile == next(t for t in k4.BLOCK_TILES if costs[t] == min(costs.values()))
 
 
 def _port_block(rng, L, c0, growth, impl):
@@ -180,6 +253,35 @@ def test_cpu_tensor_takes_the_plain_version():
     torch.testing.assert_close(got, k4.dense_block_reference(x, folded), atol=0, rtol=0)
     assert got.shape == (3, 5, 7, 24)
     torch.testing.assert_close(got[..., :8], x, atol=0, rtol=0)
+
+
+def test_eval_block_passes_its_packed_pair(monkeypatch):
+    """The eval block hands K4's wrapper its cached packed pair, the one made
+    with its fold, and the wrapper on the CPU runs the plain version with
+    it, in f32 and bf16."""
+    L, c0, growth, h, w = 3, 16, 8, 8, 16
+    rng = np.random.default_rng(15)
+    block = _port_block(rng, L, c0, growth, "pallas")
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return k4.dense_block(*args)
+
+    monkeypatch.setattr(pm, "dense_block", spy)
+    x = torch.from_numpy(rng.normal(size=(2, c0, h, w)).astype(np.float32))
+    with torch.no_grad():
+        block(x)
+        block(x)
+    folded, packed = block._kernel_operands()
+    assert len(seen) == 2 and all(args[1] is folded and args[2] is packed for args in seen)
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    before = k4.K4_LAUNCHES.value
+    for dtype in (torch.float32, torch.bfloat16):
+        got = k4.dense_block(x_nhwc.to(dtype), folded, packed)
+        torch.testing.assert_close(got, k4.dense_block_reference(x_nhwc.to(dtype), folded),
+                                   atol=0, rtol=0)
+    assert k4.K4_LAUNCHES.value == before
 
 
 @pytest.mark.parametrize("case,error", [

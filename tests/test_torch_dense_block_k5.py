@@ -2,7 +2,9 @@
 (``dmmfods_tpu_torch/ops/dense_block_strip.py``): JAX's strip gates (``pick_rs``, ``pick_rs_carry``, ``eligible``) against the
 port's copies; the plain version against JAX's recompute strip kernel
 (``dense_block_strip`` in interpret mode, the same code path the TPU runs) at
-the shapes of ``tests/test_pallas_dense_block_strip.py``; K5's strip plan;
+the shapes of ``tests/test_pallas_dense_block_strip.py``; K5's strip plan
+for each layer body's blocks an SM; that a pre-packed bf16 pair still takes
+the plain version on the CPU;
 the eval ``DenseBlock``'s dispatch for each ``dense_block_strip`` value; the
 wrapper's argument checks; and that a CPU tensor takes the plain version.
 All in f32. The folded BN2 biases are drawn with both signs, so a pixel
@@ -105,22 +107,31 @@ def test_plain_version_matches_jax_strip_kernel(L, c0, growth, h, w, rs):
 ])
 @pytest.mark.parametrize("sms", [132, 114, 8])
 def test_strip_plan(h, w, L, sms):
-    """Heights are multiples of the tile's 8 rows and cover the plane; a
-    plane of more than one tile row gets at least two strips; every strip
-    has a block and no SM two; at the 1280x1920 blocks every SM has one."""
-    rows, strips, blocks = k5.plan_strips(h, w, L, sms)
-    assert rows % k5.TILE_ROWS == 0 and strips == -(-h // rows)
-    assert (strips >= 2) == (h > k5.TILE_ROWS)
-    assert strips <= blocks <= sms
-    if (h, w) in ((320, 480), (160, 240)):
-        assert blocks == sms
+    """For the bf16 body's two blocks an SM and the f32 body's one: heights
+    are multiples of the tile's 8 rows and cover the plane; a plane of more
+    than one tile row gets at least two strips; every strip has a block and
+    no SM more than its body holds; the rows and strips do not depend on
+    the body; at the 1280x1920 blocks every slot has a block."""
+    plans = {}
+    for dtype, per_sm in k5.BLOCKS_PER_SM.items():
+        rows, strips, blocks = plans[dtype] = k5.plan_strips(h, w, L, sms, per_sm)
+        assert rows % k5.TILE_ROWS == 0 and strips == -(-h // rows)
+        assert (strips >= 2) == (h > k5.TILE_ROWS)
+        assert strips <= blocks <= sms * per_sm
+        if (h, w) in ((320, 480), (160, 240)):
+            assert blocks == sms * per_sm
+    assert plans[torch.bfloat16][:2] == plans[torch.float32][:2]
+    assert plans[torch.bfloat16][2] >= plans[torch.float32][2]
 
 
 def test_strip_plan_at_the_full_resolution_blocks():
     """On a 132-SM H100: two strips of 160 rows at block 1 and of 80 at
-    block 2, 66 blocks each."""
-    assert k5.plan_strips(320, 480, 6, 132) == (160, 2, 132)
-    assert k5.plan_strips(160, 240, 12, 132) == (80, 2, 132)
+    block 2, 132 blocks each in bf16 (two an SM), 66 in f32."""
+    assert k5.BLOCKS_PER_SM == {torch.bfloat16: 2, torch.float32: 1}
+    assert k5.plan_strips(320, 480, 6, 132, 2) == (160, 2, 264)
+    assert k5.plan_strips(160, 240, 12, 132, 2) == (80, 2, 264)
+    assert k5.plan_strips(320, 480, 6, 132, 1) == (160, 2, 132)
+    assert k5.plan_strips(160, 240, 12, 132, 1) == (80, 2, 132)
 
 
 def _port_block(rng, L, c0, growth, strip):
@@ -223,6 +234,29 @@ def test_cpu_tensor_takes_the_plain_version():
     torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert got.shape == (1, 5, 7, 24)
     torch.testing.assert_close(got[..., :8], x, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k5"])
+def test_cpu_tensor_with_packed_weights_takes_the_plain_version(kernel):
+    """Given the packed pair (as the eval block passes it), K2's and K5's
+    wrappers on a CPU tensor still run the plain version, in f32 and bf16,
+    and launch nothing; a pair of the wrong layout raises."""
+    rng = np.random.default_rng(16)
+    folded = _torch(_folded(rng, 2, 8, 8, 32))
+    packed = k5.pack_layer_weights(folded)
+    run = k5.dense_block_strip if kernel == "k2" else k5.dense_block_strip_recompute
+    before = (k5.K5_LAUNCHES.value, k5.K2_LAUNCHES.value)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.normal(size=(1, 5, 7, 8)).astype(np.float32)).to(dtype)
+        got = run(x, folded, packed)
+        torch.testing.assert_close(got, k5.dense_block_strip_reference(x, folded),
+                                   atol=0, rtol=0)
+        assert got.dtype == dtype and got.shape == (1, 5, 7, 24)
+    assert (k5.K5_LAUNCHES.value, k5.K2_LAUNCHES.value) == before
+    for bad in ((packed[0].float(), packed[1]), (packed[0], packed[1][:, :8]),
+                (packed[0][:, :16], packed[1])):
+        with pytest.raises(ValueError):
+            run(x, folded, bad)
 
 
 @pytest.mark.parametrize("case,error", [
