@@ -12,8 +12,8 @@ exit code:
 2. Build: compiles the CUDA kernels from ``dmmfods_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and prints the build time and ptxas's
    registers and spills of each kernel, with the dynamic shared memory of
-   the tensor-core kernels (the bf16 bodies of K2, K3, K4 and K5); fails if
-   those spill.
+   the tensor-core kernels (the bf16 bodies of K2, K3, K4, K5 and K6, the
+   last at each channel count 1-8); fails if those spill.
 3. K1 (the fused concat+BN+ReLU+1x1 kernel) against its plain PyTorch
    version at the 128x192 serving shape (16x24 pixels, 128/128 -> 128
    channels) at batch 8 and 256 in bf16 and f32, at the 1280x1920 shape
@@ -35,9 +35,10 @@ exit code:
    after holding its launch plan (tile, cluster, warp split, shared memory)
    from ``dmm_dense_block_plan`` against the Python mirror ``block_plan``,
    at a ragged shape in bf16 and f32 and at a small-plane shape in f32; K6
-   (the fused
-   stem + pool0) at 1280x1920 with 3 and 1 channels and at 128x192 in
-   bf16, and at a ragged shape in f32.
+   (the fused stem + pool0) at 1280x1920 and at 128x192, each with 3 and 1
+   channels, and at two ragged shapes (4 and 8 channels) in bf16, on
+   weights packed beforehand (``pack_stem_weights``), and at a ragged shape
+   in f32.
 5. Serve at 128x192 with the default config: the full-width DenseNet-121
    mid-fusion model (random weights from a seed) in bf16 through
    ``InferenceEngine``: warm-up, the worker with four requests, one
@@ -65,13 +66,15 @@ exit code:
    with the default config at b1/b8/b32/b256 at 128x192 and at b1 at
    1280x1920, and the K5 path's forward in turns with the default one, then
    ``torch.profiler`` breakdowns of the device time of the default 1280x1920
-   forward, the K5 path's and the opt-in b256 forward; K1 at the b256
+   forward, the K5 path's, the opt-in 1280x1920 forward (K6's share of it)
+   and the opt-in b256 forward; K1 at the b256
    shape, K2 and K5 at both block shapes (K5 also against K2; K2's packing
    of its bf16 weights timed apart), K3 at the
    1280x1920 shape on weights folded beforehand, with the fold
    (``kernel_weights``) timed apart, K4 at the four b256 block shapes and K6
-   at 1280x1920
-   with 3 channels, each against its plain version in turns; K4 and K6 also
+   at 1280x1920 with 3 and with 1 channel and at 128x192 with 3, on weights
+   packed beforehand with the packing timed apart, each against its plain
+   version in turns; K4 and K6 also
    against the model's own plain block loop and unfused stem, the code they
    replace. K2, K4 and K5 take their bf16 weights packed beforehand, as the
    eval ``DenseBlock`` keeps them. Each kernel's bound is computed from the
@@ -113,12 +116,14 @@ K3_FULL = (640, 960, 128, 4, 64, 3)
 # batches the opt-in path gives each block (the kernel picks its cluster of
 # blocks per image from the batch: block 2 runs 4-block clusters at b1, b8
 # and b32, block 1 6 at b1 and b8 and 4 at b32) and at b256 (one block per
-# image), and timed at b256; K6 at 1280x1920 (h, w, channels; 64 features)
+# image), and timed at b256; K6's timed shapes (h, w, channels; 64
+# features): the model's two stems at 1280x1920 and the RGB stem at 128x192
 K4_BLOCKS = {"block1": (32, 48, 64, 6), "block2": (16, 24, 128, 12),
              "block3": (8, 12, 256, 24), "block4": (4, 6, 512, 16)}
 K4_PATH_BATCHES = {"block1": (1, 8, 32), "block2": (1, 8, 32), "block3": (8, 32),
                    "block4": (32,)}
-K6_FULL = (FULL_HEIGHT, FULL_WIDTH, 3)
+K6_TIMED = {"": (FULL_HEIGHT, FULL_WIDTH, 3), "_c1": (FULL_HEIGHT, FULL_WIDTH, 1),
+            "_128x192": (HEIGHT, WIDTH, 3)}
 # K5's shapes besides the path's (name, h, w, c0, layers, growth, K): its
 # plan cuts 37 rows into strips of 24 and 13, keeps 8 rows as one strip, and
 # cuts 16 rows into strips of 8 under 12 layers
@@ -141,10 +146,11 @@ KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
                 "dense_block_recompute_kernel", "dense_layer_mma_kernel",
                 "phase_head_mma_kernel", "dense_block_mma_kernel",
-                "dense_block_recompute_mma_kernel")
+                "dense_block_recompute_mma_kernel", "stem_pool_mma_kernel")
 # the bf16 bodies on the tensor cores, which must not spill
 TENSOR_CORE_KERNELS = ("dense_layer_mma_kernel", "phase_head_mma_kernel",
-                       "dense_block_mma_kernel", "dense_block_recompute_mma_kernel")
+                       "dense_block_mma_kernel", "dense_block_recompute_mma_kernel",
+                       "stem_pool_mma_kernel")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
 # rate for the type of a kernel's inputs, and the memory rate. A kernel's
 # bound is the larger of its operations over the first and the bytes it must
@@ -453,8 +459,10 @@ def _ptxas_report(build_log, lib):
         if "Compiling entry function" in line:
             name = next((n for n in KERNEL_NAMES if n in line), "?")
             tile = re.search(r"Li(\d+)ELi(\d+)E", line)
+            chans = re.search(r"stem_pool_mma_kernelILi(\d+)E", line)
             kernel = (f"{name}<{'bf16' if 'nv_bfloat16' in line else 'f32'}"
-                      + (f", {tile[1]}x{tile[2]}" if tile else "") + ">")
+                      + (f", {tile[1]}x{tile[2]}" if tile else "")
+                      + (f", C={chans[1]}" if chans else "") + ">")
         elif "spill stores" in line:
             spills = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
         elif "registers" in line:
@@ -465,6 +473,8 @@ def _ptxas_report(build_log, lib):
                 dynamic = f", {lib.dmm_dense_layer_mma_smem()} bytes dynamic smem"
             elif name == "dense_block_mma_kernel" and tile:
                 dynamic = f", {mma_smem(int(tile[1]), int(tile[2]))} bytes dynamic smem"
+            elif name == "stem_pool_mma_kernel" and chans:
+                dynamic = f", {lib.dmm_stem_pool_mma_smem(int(chans[1]))} bytes dynamic smem"
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; spill stores "
                   f"{spills[0]} B, loads {spills[1]} B{dynamic}")
             if name in TENSOR_CORE_KERNELS and any(spills):
@@ -670,18 +680,19 @@ def main() -> int:
         worst["K4"] = max(worst["K4"], _check(
             "K4", f"{name} ({batch}, {h}, {w}, {c0}) L={layers} G={growth} K={k}",
             out, ref))
-    k6_cases = [((1, FULL_HEIGHT, FULL_WIDTH, 3, 64), torch.bfloat16),
-                ((1, FULL_HEIGHT, FULL_WIDTH, 1, 64), torch.bfloat16),
-                ((1, HEIGHT, WIDTH, 3, 64), torch.bfloat16),
-                ((2, 37, 58, 4, 40), torch.float32)]
+    k6_cases = [((1, h, w, c, 64), torch.bfloat16)
+                for h, w in ((FULL_HEIGHT, FULL_WIDTH), (HEIGHT, WIDTH)) for c in (3, 1)]
+    k6_cases += [((2, 37, 58, 4, 40), torch.bfloat16), ((1, 30, 46, 8, 64), torch.bfloat16),
+                 ((2, 37, 58, 4, 40), torch.float32)]
     for shape, dt in k6_cases:
         x, w7, gamma, beta = _k6_inputs(gen, *shape, dt, device)
-        out = stem_pool.stem_pool(x, w7, gamma, beta)
+        packed = stem_pool.pack_stem_weights(w7) if dt == torch.bfloat16 else None
+        out = stem_pool.stem_pool(x, w7, gamma, beta, packed)
         torch.cuda.synchronize()
         ref = stem_pool.stem_pool_reference(x.float(), w7, gamma, beta)
         worst["K6"] = max(worst["K6"], _check(
             "K6", f"x {tuple(x.shape)} F={shape[-1]}", out, ref))
-    del x, folded, x_lo, raw, consts, w7, out, out2, out5, ref
+    del x, folded, x_lo, raw, consts, w7, packed, out, out2, out5, ref
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
@@ -851,8 +862,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rgb = torch.rand(1, FULL_HEIGHT, FULL_WIDTH, 3, generator=gen).to(device, torch.bfloat16)
     lidar = torch.rand(1, FULL_HEIGHT, FULL_WIDTH, 1, generator=gen).to(device, torch.bfloat16)
+    full_ms = {}
     for label, eng in (("default", engine3), ("opt-in", engine3_opt)):
         ms, _ = _median_ms(lambda: eng.forward(rgb, lidar), iters=15)
+        full_ms[label] = ms
         print(f"{tag} engine forward {label} b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid "
               f"fusion before block 3): median {ms:.4f} ms, {1e3 / ms:.2f} frames/s "
               f"(15 iterations)")
@@ -865,6 +878,8 @@ def main() -> int:
                    f"default b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
     _print_profile(tag, lambda: engine3_k5.forward(rgb, lidar), k5_path_ms,
                    f"K5 path b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
+    _print_profile(tag, lambda: engine3_opt.forward(rgb, lidar), full_ms["opt-in"],
+                   f"opt-in (K6) b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
     del rgb, lidar
     torch.cuda.empty_cache()
 
@@ -967,26 +982,33 @@ def main() -> int:
               f"{k4_ms[name][1]:.4f} ms; the model's plain loop (cuDNN bf16 convs, BN "
               f"in bf16) {k4_ms[name][2]:.4f} ms (10 iterations each, in turns); bound "
               f"{k4_bound[name][0]:.4f} ms ({k4_bound[name][1]})")
-    x, w7, gamma, beta = _k6_inputs(gen, 1, *K6_FULL, 64, torch.bfloat16, device)
-    # the model's own unfused stem (conv0, norm0, ReLU, pool0), which K6 replaces
-    stem = Encoder(ModelSpec(), K6_FULL[2], up_to_block=1).to(device).eval()
-    x_nchw = x.permute(0, 3, 1, 2)
-    with torch.inference_mode():
-        k6_ms, k6_plain_ms, k6_model_ms = _in_turns(
-            lambda: stem_pool.stem_pool(x, w7, gamma, beta),
-            lambda: stem_pool.stem_pool_reference(x, w7, gamma, beta),
-            lambda: stem(x_nchw), iters=10)
-    # conv0's 7x7 at stride 2; the pool's comparisons are not counted
-    batch, h, w, c = x.shape
-    f = w7.shape[-1]
-    k6_bound = _bound(2 * batch * (h // 2) * (w // 2) * 49 * c * f,
-                      _nbytes(x, w7, gamma, beta)
-                      + batch * (h // 4) * (w // 4) * f * x.element_size(), x.dtype)
-    print(f"{tag} K6 {FULL_HEIGHT}x{FULL_WIDTH} x {tuple(x.shape)} F=64 bf16: median "
-          f"{k6_ms:.4f} ms; plain version (cuDNN conv0 in f32 from bf16 inputs, BN, "
-          f"ReLU, max pool in f32) {k6_plain_ms:.4f} ms; the model's unfused stem "
-          f"(cuDNN bf16) {k6_model_ms:.4f} ms (20 iterations each, in turns); bound "
-          f"{k6_bound[0]:.4f} ms ({k6_bound[1]})")
+    k6 = {}
+    for key, (h, w, c) in K6_TIMED.items():
+        x, w7, gamma, beta = _k6_inputs(gen, 1, h, w, c, 64, torch.bfloat16, device)
+        packed = stem_pool.pack_stem_weights(w7)
+        # the model's own unfused stem (conv0, norm0, ReLU, pool0), which K6 replaces
+        stem = Encoder(ModelSpec(), c, up_to_block=1).to(device).eval()
+        x_nchw = x.permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            ms, plain_ms, model_ms, pack_ms = _in_turns(
+                lambda: stem_pool.stem_pool(x, w7, gamma, beta, packed),
+                lambda: stem_pool.stem_pool_reference(x, w7, gamma, beta),
+                lambda: stem(x_nchw), lambda: stem_pool.pack_stem_weights(w7), iters=10)
+        # conv0's 7x7 at stride 2; the pool's comparisons are not counted
+        f = w7.shape[-1]
+        bound = _bound(2 * (h // 2) * (w // 2) * 49 * c * f,
+                       _nbytes(x, w7, gamma, beta) + (h // 4) * (w // 4) * f * x.element_size(),
+                       x.dtype)
+        k6.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
+                   f"model_stem_ms{key}": model_ms, f"bound_ms{key}": bound[0]})
+        if not key:
+            k6.update(bound_by=bound[1], pack_ms=pack_ms)
+        print(f"{tag} K6 {h}x{w} x {tuple(x.shape)} F=64 bf16, weights packed beforehand: "
+              f"median {ms:.4f} ms; plain version (cuDNN conv0 in f32 from bf16 inputs, BN, "
+              f"ReLU, max pool in f32) {plain_ms:.4f} ms; the model's unfused stem (cuDNN "
+              f"bf16) {model_ms:.4f} ms; the packing (pack_stem_weights, once per fold) "
+              f"{pack_ms:.4f} ms (20 iterations each, in turns); bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
 
     launches = {name: sum(c[name] for c in path_counts) for name in worst}
     print(json.dumps({"kernels": [
@@ -1026,8 +1048,7 @@ def main() -> int:
          "source": "dmmfods_tpu_torch/csrc/stem_pool.cu",
          "replaces": "dmmfods_tpu/ops/pallas/stem_pool.py:252",
          "launches": launches["K6"], "max_abs_err": worst["K6"],
-         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
-         "bound_by": k6_bound[1], "library_ms": LIBRARY_MS, "model_stem_ms": k6_model_ms},
+         "library_ms": LIBRARY_MS, **k6},
         {"name": "dense_block_strip_recompute", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block_recompute.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block_strip.py:421",

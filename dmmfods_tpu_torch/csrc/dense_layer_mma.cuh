@@ -113,16 +113,6 @@ struct LayerArgs {
   const __nv_bfloat16* w3;
 };
 
-// threadIdx.x, read by an instruction the compiler may not move: a caller
-// that loops over tiles cannot hoist what the body derives from it (the
-// 3x3's rows, the staging offsets) out of its loop and hold it across the
-// 1x1's accumulators.
-__device__ __forceinline__ int thread_index() {
-  int tid;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
-  return tid;
-}
-
 // The layer over the tile whose top-left output pixel is (y0, x0) of the
 // pixels of `frame`, with `args` as above. Ends with a barrier, so a block
 // may call it again at once for another tile.

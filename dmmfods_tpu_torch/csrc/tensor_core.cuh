@@ -1,6 +1,6 @@
 // Warp-level tensor-core and asynchronous-copy primitives for sm_90a, shared
-// by the bf16 bodies of K2 (csrc/dense_layer_mma.cuh) and K3
-// (csrc/phase_head.cu):
+// by the bf16 bodies of K2 (csrc/dense_layer_mma.cuh), K3
+// (csrc/phase_head.cu) and K6 (csrc/stem_pool.cu):
 //
 //   cp.async of 16 or 8 bytes global -> shared (zero-filled when `valid` is
 //   false),
@@ -70,6 +70,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// threadIdx.x, read by an instruction the compiler may not move: a caller
+// that loops over tiles cannot hoist what a body derives from it (K2's 3x3
+// rows and staging offsets, K6's im2col rows) out of its loop and hold it
+// across the accumulators.
+__device__ __forceinline__ int thread_index() {
+  int tid;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  return tid;
 }
 
 // a 16-byte vector as its four bf16 pairs

@@ -74,7 +74,7 @@ from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
 from ..ops.phase_head import kernel_weights as phase_head_weights
 from ..ops.phase_head import phase_head
 from ..ops.stem_pool import eligible as stem_pool_eligible
-from ..ops.stem_pool import stem_pool
+from ..ops.stem_pool import pack_stem_weights, stem_pool
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the JAX model's dense-block lowerings: 'pallas' selects K4, the XLA forms
@@ -384,6 +384,7 @@ class Encoder(nn.Module):
         super().__init__()
         init = spec.num_init_features
         self.spec = spec
+        self._stem = None                     # (key, dtype, K6's operands)
         self.conv0 = nn.Conv2d(in_channels, init, 7, stride=2, padding=3, bias=False)
         self.norm0 = _batch_norm(init)
         self.full_depth = up_to_block is None
@@ -406,16 +407,13 @@ class Encoder(nn.Module):
     def forward(self, x, after_transition=None):
         """``after_transition(i, x)``, if given, runs on the output of
         transition ``i`` (1-based) and replaces it: the mid-fusion hook.
-        Where :func:`_stem_pool_ok` holds, the stem and pool0 run as K6; the
-        pre-pool stem size still goes onto ``shapes`` for the decoder."""
+        Where :func:`_stem_pool_ok` holds, the stem and pool0 run as K6 on
+        operands kept per fold (:meth:`_stem_operands`); the pre-pool stem
+        size still goes onto ``shapes`` for the decoder."""
         b, c, h, w = x.shape
         if _stem_pool_ok(self.spec, b, h, w, c, self.training):
-            norm = self.norm0
-            gamma, beta = fold_bn(norm.weight, norm.bias, norm.running_mean,
-                                  norm.running_var, norm.eps)
             shapes = [(h // 2, w // 2)]
-            x = stem_pool(x.permute(0, 2, 3, 1).contiguous(),
-                          self.conv0.weight.permute(2, 3, 1, 0), gamma, beta)
+            x = stem_pool(x.permute(0, 2, 3, 1).contiguous(), *self._stem_operands(x.dtype))
             x = x.permute(0, 3, 1, 2)
         else:
             x = _bn_relu(_conv(x, self.conv0), self.norm0)
@@ -432,6 +430,24 @@ class Encoder(nn.Module):
                 if after_transition is not None:
                     x = after_transition(i + 1, x)
         return x, skips, shapes
+
+    def _stem_operands(self, dtype):
+        """K6's ``(w7, gamma, beta, packed)`` for inputs of ``dtype``: conv0's
+        weight as ``(7, 7, C, F)``, norm0 folded, and for bfloat16 the packed
+        weight (None for float32). Made once per fold and kept while conv0's
+        weight and norm0's parameters and buffers are the very tensors they
+        were, on the same storage, at the same version."""
+        norm = self.norm0
+        tensors = (self.conv0.weight, *norm.parameters(), *norm.buffers())
+        if (self._stem is None or self._stem[1] != dtype
+                or not _same_tensors(self._stem[0], tensors)):
+            with torch.no_grad():
+                w7 = self.conv0.weight.permute(2, 3, 1, 0).contiguous()
+                gamma, beta = fold_bn(norm.weight, norm.bias, norm.running_mean,
+                                      norm.running_var, norm.eps)
+                packed = pack_stem_weights(w7) if dtype == torch.bfloat16 else None
+            self._stem = (_fold_key(tensors), dtype, (w7, gamma, beta, packed))
+        return self._stem[2]
 
 
 def _stem_pool_ok(spec, b: int, h: int, w: int, c: int, train: bool) -> bool:

@@ -131,6 +131,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    fn = lib.dmm_stem_pool_mma_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
 
 
 def load() -> ctypes.CDLL:

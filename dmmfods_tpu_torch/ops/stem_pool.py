@@ -10,7 +10,10 @@ in f32; one cast to ``x``'s dtype at the end.
 
 * :func:`stem_pool` is the wrapper. For a CUDA tensor it launches the
   hand-written kernel ``csrc/stem_pool.cu`` (or raises); the stem plane never
-  reaches device memory. For a CPU tensor it runs the plain version.
+  reaches device memory. bfloat16 runs conv0 on the tensor cores from the
+  weight packed by :func:`pack_stem_weights` (given, or packed per call);
+  float32, the check type, runs the CUDA-core body. For a CPU tensor it runs
+  the plain version.
 * :func:`stem_pool_reference` is the plain version (conv2d, BN, ReLU,
   max_pool2d). The CPU tests hold it against the JAX kernel in interpret
   mode and against the model's unfused stem; ``chip_smoke.py`` holds the
@@ -34,6 +37,7 @@ from .fused import _DTYPE_CODES, LaunchCount
 K6_LAUNCHES = LaunchCount()
 
 MAX_CHANNELS = 8   # the kernel's shared-memory plan (csrc/stem_pool.cu: kCMax)
+GEMM_TILE = 16     # K and F of the packed weight round up to the mma.sync k16 / n16
 # JAX's VMEM budget of a strip (a number of the gate, not of the card)
 STRIP_BUDGET_BYTES = 100 * 1024 * 1024
 
@@ -108,6 +112,39 @@ def _check(x, w7, gamma, beta):
     return c, f
 
 
+def packed_shape(c, f):
+    """``(K_pad, F_pad)`` of :func:`pack_stem_weights` for ``C`` inputs and
+    ``F`` features: ``49 C`` and ``F`` rounded up to 16."""
+    return -(-49 * c // GEMM_TILE) * GEMM_TILE, -(-f // GEMM_TILE) * GEMM_TILE
+
+
+def pack_stem_weights(w7, dtype=torch.bfloat16):
+    """conv0's ``(7, 7, C, F)`` weight as the bf16 kernel's GEMM B operand:
+    ``(K_pad, F_pad)`` row-major with row ``k = (dy * 7 + dx) * C + c`` (the
+    order of ``w7.reshape(49 * C, F)``), zeros in every pad entry (see
+    :func:`packed_shape`). Only bfloat16 has a packed form."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"only bfloat16 packs conv0's weight, got {dtype}")
+    if w7.dim() != 4 or tuple(w7.shape[:2]) != (7, 7):
+        raise ValueError(f"w7 must be (7, 7, C, F), got {tuple(w7.shape)}")
+    c, f = w7.shape[2:]
+    packed = torch.zeros(packed_shape(c, f), dtype=dtype, device=w7.device)
+    packed[:49 * c, :f] = w7.reshape(49 * c, f)
+    return packed
+
+
+def _check_packed(x, c, f, packed):
+    """Raise unless ``packed`` is :func:`pack_stem_weights`'s layout for a
+    bfloat16 ``x`` of ``C`` channels and ``F`` features."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"a packed weight goes with bfloat16 x, got x {x.dtype}")
+    shape = packed_shape(c, f)
+    if (tuple(packed.shape) != shape or packed.dtype != torch.bfloat16
+            or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError(f"packed must be a contiguous bfloat16 {shape} on {x.device}, "
+                         f"got a {packed.dtype} {tuple(packed.shape)} on {packed.device}")
+
+
 def stem_pool_reference(x, w7, gamma, beta):
     """The plain version: conv0, BN, ReLU and the max pool in f32 from
     ``x``'s dtype, cast to it once at the end."""
@@ -119,15 +156,19 @@ def stem_pool_reference(x, w7, gamma, beta):
     return F.max_pool2d(y, 3, 2, 1).to(dt).permute(0, 2, 3, 1).contiguous()
 
 
-def stem_pool(x, w7, gamma, beta):
+def stem_pool(x, w7, gamma, beta, packed=None):
     """conv0 + norm0 + ReLU + pool0 of ``x`` in one pass (see the module
-    docstring).
+    docstring). ``packed`` is ``pack_stem_weights(w7)`` made beforehand, for
+    a bfloat16 ``x`` only, or None (bfloat16 then packs per call).
 
     On a CUDA device ``x`` must be a contiguous NHWC tensor in float32 or
     bfloat16 with ``C <= 8``; the kernel launches on the current stream and a
-    failure raises. On the CPU the plain version runs.
+    failure raises. On the CPU the plain version runs (a ``packed`` given is
+    checked, then not used).
     """
     c, f = _check(x, w7, gamma, beta)
+    if packed is not None:
+        _check_packed(x, c, f, packed)
     if x.device.type == "cpu":
         return stem_pool_reference(x, w7, gamma, beta)
     if x.device.type != "cuda":
@@ -145,7 +186,12 @@ def stem_pool(x, w7, gamma, beta):
     out = torch.empty((bsz, hq, wq, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    w7 = w7.to(x.dtype).contiguous()
+    if x.dtype == torch.bfloat16:
+        w7 = packed if packed is not None else pack_stem_weights(w7)
+        if w7.data_ptr() % 16:
+            raise ValueError("packed must start on a 16-byte boundary")
+    else:
+        w7 = w7.to(x.dtype).contiguous()
     gamma, beta = gamma.contiguous(), beta.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -8,9 +8,13 @@ tensor takes the plain version. All in f32. BN biases are drawn with both
 signs, as in ``tests/test_pallas_stem_pool.py``: a positive beta exposes a
 pool padding that contributes ReLU(beta). Tolerance: atol 5e-4 / rtol 1e-4,
 the JAX kernel test's own, for f32 summation-order noise over 49*C taps.
-The kernel itself runs only on the card: ``test_kernel_matches_plain_on_cuda``
-skips without one, and ``chip_smoke.py`` checks it at 1280x1920 and
-128x192."""
+The bf16 kernel's operands are checked here: ``pack_stem_weights``' layout
+at the model's and the kernel's largest channel counts, the kernel's GEMM
+form (an im2col against the packed weight, in f32) against the plain
+version, the ``Encoder``'s per-fold cache of them, and the wrapper's checks
+of a packed weight. The kernel itself runs only on the card:
+``test_kernel_matches_plain_on_cuda`` skips without one, and
+``chip_smoke.py`` checks it at 1280x1920 and 128x192."""
 
 import dataclasses
 
@@ -203,14 +207,19 @@ def test_kernel_matches_plain_on_cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(8)
+    # bf16 runs the tensor-core body, with the weight packed beforehand, at
+    # every C the model feeds it and the largest, on ragged planes
+    bf16_cases = [((1, 37 + 4 * c, 58, c, f), torch.bfloat16, 1e-2)
+                  for c in (1, 3, 4, 8) for f in (64, 40)]
     for (batch, h, w, c, f), dtype, bound in [
             ((2, 37, 58, 4, 40), torch.float32, 1e-4),
             ((1, 128, 192, 3, 64), torch.float32, 1e-4),
-            ((1, 128, 192, 1, 64), torch.bfloat16, 1e-2)]:
+            ((1, 128, 192, 1, 64), torch.bfloat16, 1e-2)] + bf16_cases:
         x, w7, gamma, beta = (t.cuda() for t in _torch(_case(rng, batch, h, w, c, f)))
         w7 = w7.to(dtype).float()
+        packed = k6.pack_stem_weights(w7) if dtype == torch.bfloat16 else None
         before = k6.K6_LAUNCHES.value
-        got = k6.stem_pool(x.to(dtype), w7, gamma, beta)
+        got = k6.stem_pool(x.to(dtype), w7, gamma, beta, packed)
         torch.cuda.synchronize()
         assert k6.K6_LAUNCHES.value == before + 1
         want = k6.stem_pool_reference(x.to(dtype).float(), w7, gamma, beta)
@@ -218,3 +227,147 @@ def test_kernel_matches_plain_on_cuda():
         assert err <= bound * want.abs().max().item()
         with pytest.raises(ValueError):   # the kernel takes contiguous NHWC only
             k6.stem_pool(x.transpose(1, 2), w7, gamma, beta)
+
+
+@pytest.mark.parametrize("f", [64, 40, 8])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+def test_pack_stem_weights(c, f):
+    """The bf16 kernel's B operand: ``(K_pad, F_pad)`` with 49*C and F
+    rounded up to 16, the unpadded block ``w7``'s ``(49*C, F)`` reshape in
+    bf16 (row ``(dy * 7 + dx) * C + c``), zeros in every pad entry."""
+    w7 = torch.from_numpy(np.random.default_rng(c * 10 + f).normal(
+        size=(7, 7, c, f)).astype(np.float32))
+    packed = k6.pack_stem_weights(w7)
+    k_pad, f_pad = -(-49 * c // 16) * 16, -(-f // 16) * 16
+    assert packed.shape == (k_pad, f_pad) == k6.packed_shape(c, f)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert {1: 64, 3: 160, 4: 208, 8: 400}[c] == k_pad
+    assert torch.equal(packed[:49 * c, :f], w7.to(torch.bfloat16).reshape(49 * c, f))
+    assert torch.equal(packed[7 * 3 * c + 4 * c + 1 if c > 1 else 7 * 3 + 4, :f],
+                       w7[3, 4, 1 if c > 1 else 0].to(torch.bfloat16))
+    pad = torch.ones_like(packed, dtype=torch.bool)
+    pad[:49 * c, :f] = False
+    assert (packed[pad] == 0).all() and packed[pad].numel() == k_pad * f_pad - 49 * c * f
+    with pytest.raises(TypeError):
+        k6.pack_stem_weights(w7, torch.float32)
+
+
+def _stem_gemm(x, packed, c, f, gamma, beta):
+    """The bf16 kernel's form in f32: an im2col ``(B, H2 * W2, K_pad)`` of
+    ``x`` (row ``(dy * 7 + dx) * C + c``, zeros past 49*C), times the unpacked
+    weight, BN and ReLU, 0 outside the stem plane as the pool's padding, and
+    the 3x3/s2 max over the padded stem plane."""
+    batch, h, w, _ = x.shape
+    h2, w2 = -(-h // 2), -(-w // 2)
+    k_pad = packed.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, 3, 3 + 2 * h2 - h, 3, 3 + 2 * w2 - w))
+    cols = torch.zeros(batch, h2, w2, k_pad)
+    for dy in range(7):
+        for dx in range(7):
+            k = (dy * 7 + dx) * c
+            cols[..., k:k + c] = xp[:, dy:dy + 2 * h2:2, dx:dx + 2 * w2:2, :]
+    stem = cols.reshape(batch, h2 * w2, k_pad) @ packed.float()
+    stem = torch.relu(stem[..., :f] * gamma + beta).reshape(batch, h2, w2, f)
+    hq, wq = -(-h2 // 2), -(-w2 // 2)
+    padded = torch.zeros(batch, 2 * hq + 1, 2 * wq + 1, f)      # 0: the max's identity
+    padded[:, 1:h2 + 1, 1:w2 + 1] = stem
+    out = torch.zeros(batch, hq, wq, f)
+    for a in range(3):
+        for b in range(3):
+            out = torch.maximum(out, padded[:, a:a + 2 * hq:2, b:b + 2 * wq:2])
+    return out
+
+
+@pytest.mark.parametrize("batch,c,f,h,w", [
+    (1, 3, 8, 32, 64), (1, 1, 8, 32, 64), (1, 4, 16, 64, 64),   # the JAX-parity shapes
+    (2, 3, 40, 30, 46),                                          # not a multiple of 4
+])
+def test_gemm_form_matches_plain(batch, c, f, h, w):
+    """The im2col GEMM against the packed weight, in f32, equals the plain
+    version: the packing's row order and padding, and the pool's 0 padding,
+    are the plain function. Weights exact in bf16, so packing loses
+    nothing."""
+    case = _case(np.random.default_rng(c * 7 + h), batch, h, w, c, f)
+    x, w7, gamma, beta = _torch(case)
+    w7 = w7.to(torch.bfloat16).float()
+    got = _stem_gemm(x, k6.pack_stem_weights(w7), c, f, gamma, beta)
+    want = k6.stem_pool_reference(x, w7, gamma, beta)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_keeps_stem_operands_per_fold(monkeypatch, dtype):
+    """K6's operands are folded once: two forwards pass the very same gamma,
+    beta (and, in bf16, packed weight); an assigned state dict (twice) and
+    an in-place edit of norm0's running variance each fold anew. In f32 the
+    output stays the unfused encoder's."""
+    spec = pm.ModelSpec(growth_rate=8, block_config=(2, 2), num_init_features=16,
+                        stem_pool_strip="on", dtype=dtype)
+    encoder = pm.Encoder(spec, 3).eval()
+    unfused = pm.Encoder(dataclasses.replace(spec, stem_pool_strip="auto"), 3).eval()
+    calls = []
+
+    def spy(*args):
+        calls.append(args[2:])
+        return k6.stem_pool(*args)
+
+    monkeypatch.setattr(pm, "stem_pool", spy)
+    x = torch.rand(1, 3, 64, 128, generator=torch.Generator().manual_seed(1)).to(dtype)
+
+    def forward():
+        unfused.load_state_dict(encoder.state_dict())
+        with torch.no_grad():
+            got, want = encoder(x)[0], unfused(x)[0]
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        return calls[-1]
+
+    first = forward()
+    assert all(a is b for a, b in zip(forward(), first))
+    assert (first[2] is None) == (dtype == torch.float32)
+    if dtype == torch.bfloat16:
+        assert first[2].dtype == torch.bfloat16
+        assert first[2].shape == k6.packed_shape(3, 16)
+    seen = [first]
+    rng = np.random.default_rng(2)
+    for _ in range(2):
+        state = {k: (torch.from_numpy(rng.uniform(0.5, 1.5, tuple(v.shape)).astype(np.float32))
+                     if v.is_floating_point() else v.clone())
+                 for k, v in encoder.state_dict().items()}
+        encoder.load_state_dict(state, assign=True)
+        seen.append(forward())
+    with torch.no_grad():
+        encoder.norm0.running_var.mul_(2)
+    seen.append(forward())
+    for i, ops in enumerate(seen):
+        for other in seen[:i]:
+            assert all(a is not b for a, b in zip(ops[:2], other[:2]))
+            if dtype == torch.bfloat16:
+                assert ops[2] is not other[2]
+    assert all(a is b for a, b in zip(forward(), seen[-1]))
+
+
+@pytest.mark.parametrize("case,error", [
+    ("shape", ValueError), ("dtype", ValueError), ("device", ValueError),
+    ("f32_x", TypeError),
+])
+def test_wrapper_rejects_packed(case, error):
+    """A packed weight of the wrong shape, dtype or device, or with a float32
+    ``x``, raises (on the CPU too, where the plain version then runs)."""
+    x, w7, gamma, beta = _torch(_case(np.random.default_rng(9), 1, 16, 16, 3, 8))
+    packed = k6.pack_stem_weights(w7)
+    x = x.to(torch.bfloat16)
+    if case == "shape":
+        packed = packed[:, :8].contiguous()
+    elif case == "dtype":
+        packed = packed.float()
+    elif case == "device":
+        packed = packed.to("meta")
+    elif case == "f32_x":
+        x = x.float()
+    with pytest.raises(error):
+        k6.stem_pool(x, w7, gamma, beta, packed)
+    x = x.to(torch.bfloat16)
+    got = k6.stem_pool(x, w7, gamma, beta, k6.pack_stem_weights(w7))
+    torch.testing.assert_close(got, k6.stem_pool_reference(x, w7, gamma, beta), atol=0, rtol=0)
