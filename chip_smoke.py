@@ -12,12 +12,18 @@ exit code:
 2. Build: compiles the CUDA kernels from ``dmmfods_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and prints the build time and ptxas's
    registers and spills of each kernel, with the dynamic shared memory of
-   the tensor-core kernels (the bf16 bodies of K2, K3, K4, K5 and K6, the
-   last at each channel count 1-8); fails if those spill.
+   the tensor-core kernels (the bf16 bodies of K1, K2, K3, K4, K5 and K6,
+   K1's at each N slice, K6's at each channel count 1-8); fails if those
+   spill.
 3. K1 (the fused concat+BN+ReLU+1x1 kernel) against its plain PyTorch
-   version at the 128x192 serving shape (16x24 pixels, 128/128 -> 128
-   channels) at batch 8 and 256 in bf16 and f32, at the 1280x1920 shape
-   (80x120 pixels, 256/256 -> 256) in bf16, and at a ragged shape in f32.
+   version: in bf16 on operands folded and packed beforehand
+   (``fuse_operands``) at the 128x192 serving shape (16x24 pixels, 128/128
+   -> 128 channels) at b1, b8, b32 and b256, at the 1280x1920 shape (80x120
+   pixels, 256/256 -> 256), at a row count that is not a multiple of its
+   tile, at 48/16 -> 40 (K and N padding), at 512/512 -> 512 (64-column N
+   slices) and at 12/20 -> 24 (not multiples of 8: the CUDA-core body, which
+   the C entry picks by shape); in bf16 folded per call at b8; in f32 (the
+   CUDA-core body) at b8, b256 and a ragged shape.
 4. K2 (the dense block) against its plain version at the 1280x1920 block
    shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12 layers) and at two
    ragged shapes (G 8, K 32; G 12, K 48) in bf16, with its bf16 wave plan,
@@ -77,7 +83,12 @@ exit code:
    version in turns; K4 and K6 also
    against the model's own plain block loop and unfused stem, the code they
    replace. K2, K4 and K5 take their bf16 weights packed beforehand, as the
-   eval ``DenseBlock`` keeps them. Each kernel's bound is computed from the
+   eval ``DenseBlock`` keeps them. K1 on operands folded beforehand, as the
+   eval ``ConcatFuse`` keeps them, at b1, b8, b32, b256 and 1280x1920, each
+   in turns with its plain version and the fold (``fuse_operands``), and at
+   b256 with the bare cuBLAS product of the normalized concat as a
+   yardstick; each also as device time alone (the stream held busy while
+   the host enqueues the call, so the event window holds no host time). Each kernel's bound is computed from the
    timed inputs: the larger of its operations over the card's peak rate for
    the inputs' type and the bytes it must move over the memory rate.
 
@@ -144,13 +155,22 @@ K2_RAGGED_BF16 = [("ragged", 37, 53, 24, 3, 8, 32), ("ragged 2", 21, 35, 40, 4, 
 K3_RAGGED_BF16 = [(13, 21, 40, 3, 20, 3), (13, 21, 40, 3, 64, 8)]
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
-                "dense_block_recompute_kernel", "dense_layer_mma_kernel",
-                "phase_head_mma_kernel", "dense_block_mma_kernel",
+                "dense_block_recompute_kernel", "concat_bn_relu_conv1x1_mma_kernel",
+                "dense_layer_mma_kernel", "phase_head_mma_kernel", "dense_block_mma_kernel",
                 "dense_block_recompute_mma_kernel", "stem_pool_mma_kernel")
 # the bf16 bodies on the tensor cores, which must not spill
-TENSOR_CORE_KERNELS = ("dense_layer_mma_kernel", "phase_head_mma_kernel",
-                       "dense_block_mma_kernel", "dense_block_recompute_mma_kernel",
-                       "stem_pool_mma_kernel")
+TENSOR_CORE_KERNELS = ("concat_bn_relu_conv1x1_mma_kernel", "dense_layer_mma_kernel",
+                       "phase_head_mma_kernel", "dense_block_mma_kernel",
+                       "dense_block_recompute_mma_kernel", "stem_pool_mma_kernel")
+# K1's shapes on the main path (batch, h, w, Ca, Cb, Cout): the 128x192
+# buckets' fuse before block 2 and the 1280x1920 fuse before block 3
+K1_PATH = {"b1": (1, 16, 24, 128, 128, 128), "b8": (8, 16, 24, 128, 128, 128),
+           "b32": (32, 16, 24, 128, 128, 128), "b256": (256, 16, 24, 128, 128, 128),
+           "full": (1, 80, 120, 256, 256, 256)}
+# and besides them: 1,599 rows (a ragged last tile), K and N padding, 64-column
+# N slices, and widths that are not multiples of 8 (the CUDA-core body)
+K1_EXTRA_BF16 = [(3, 13, 41, 128, 128, 128), (2, 5, 7, 48, 16, 40), (4, 8, 12, 512, 512, 512),
+                 (1, 25, 40, 12, 20, 24)]
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
 # rate for the type of a kernel's inputs, and the memory rate. A kernel's
 # bound is the larger of its operations over the first and the bytes it must
@@ -226,6 +246,27 @@ def _in_turns(*fns, iters):
     return tuple(_median(t) for t in times)
 
 
+def _device_ms(fn, iters, warmup=3):
+    """Median ms of ``fn``'s device work alone: the stream sleeps (~1 ms)
+    before the start event while the host enqueues the call, so the event
+    window holds no host time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return _median(times)
+
+
 def _check(name, shape, out, ref):
     """max|out - ref| against the bound of ``out``'s dtype; raises if over."""
     import torch
@@ -289,6 +330,25 @@ def _k1_inputs(gen, batch, h, w, ca, cb, cout, dtype, device):
         weight=(torch.randn(cout, k, 1, 1, generator=gen) * 0.05).to(dtype).float().to(device),
     )
     return a, b, params
+
+
+def _k1_operands(params, dtype):
+    from dmmfods_tpu_torch.ops.fused import fuse_operands
+
+    return fuse_operands(params["scale"], params["bias"], params["mean"], params["var"],
+                         params["weight"], 1e-5, dtype)
+
+
+def _k1_bound(a, b, operands, cout):
+    """K1's bound: 2 R K Cout operations; a, b, gamma, beta and the weight
+    (packed, or f32) read once, the (R, Cout) output written once."""
+    rows = a.numel() // a.shape[-1]
+    k = a.shape[-1] + b.shape[-1]
+    weight_bytes = (_nbytes(operands[2]) if operands[2] is not None
+                    else k * cout * 4)
+    return _bound(2 * rows * k * cout,
+                  _nbytes(a, b, *operands[:2]) + weight_bytes + rows * cout * a.element_size(),
+                  a.dtype)
 
 
 def _k1_error(out, a, b, params):
@@ -460,9 +520,11 @@ def _ptxas_report(build_log, lib):
             name = next((n for n in KERNEL_NAMES if n in line), "?")
             tile = re.search(r"Li(\d+)ELi(\d+)E", line)
             chans = re.search(r"stem_pool_mma_kernelILi(\d+)E", line)
+            slice_n = re.search(r"concat_bn_relu_conv1x1_mma_kernelILi(\d+)E", line)
             kernel = (f"{name}<{'bf16' if 'nv_bfloat16' in line else 'f32'}"
                       + (f", {tile[1]}x{tile[2]}" if tile else "")
-                      + (f", C={chans[1]}" if chans else "") + ">")
+                      + (f", C={chans[1]}" if chans else "")
+                      + (f", N slice {slice_n[1]}" if slice_n else "") + ">")
         elif "spill stores" in line:
             spills = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
         elif "registers" in line:
@@ -475,6 +537,12 @@ def _ptxas_report(build_log, lib):
                 dynamic = f", {mma_smem(int(tile[1]), int(tile[2]))} bytes dynamic smem"
             elif name == "stem_pool_mma_kernel" and chans:
                 dynamic = f", {lib.dmm_stem_pool_mma_smem(int(chans[1]))} bytes dynamic smem"
+            elif name == "concat_bn_relu_conv1x1_mma_kernel" and slice_n:
+                widths = [s[3:] for s in (*K1_PATH.values(), *K1_EXTRA_BF16)
+                          if lib.dmm_concat_bn_relu_conv1x1_tile_n(*s[3:]) == int(slice_n[1])]
+                dynamic = "".join(
+                    f", {lib.dmm_concat_bn_relu_conv1x1_mma_smem(*w)} bytes dynamic smem at "
+                    f"{w[0]}+{w[1]}->{w[2]}" for w in dict.fromkeys(widths))
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; spill stores "
                   f"{spills[0]} B, loads {spills[1]} B{dynamic}")
             if name in TENSOR_CORE_KERNELS and any(spills):
@@ -598,18 +666,25 @@ def main() -> int:
     # 3. K1 against its plain version ----------------------------------------
     gen = torch.Generator().manual_seed(SEED)
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
-    cases = [(batch, 16, 24, 128, 128, 128, dt)
-             for dt in (torch.bfloat16, torch.float32) for batch in (8, 256)]
-    cases.append((1, 80, 120, 256, 256, 256, torch.bfloat16))   # the 1280x1920 fuse
-    cases.append((1, 25, 40, 48, 16, 40, torch.float32))
-    for batch, h, w, ca, cb, cout, dt in cases:
+    # bf16 on operands folded beforehand at every path shape and the extras;
+    # bf16 folded per call at b8; f32 at b8, b256 and a ragged shape
+    cases = [(shape, torch.bfloat16, True) for shape in (*K1_PATH.values(), *K1_EXTRA_BF16)]
+    cases.append((K1_PATH["b8"], torch.bfloat16, False))
+    cases += [(shape, torch.float32, True)
+              for shape in (K1_PATH["b8"], K1_PATH["b256"], (1, 25, 40, 48, 16, 40))]
+    for (batch, h, w, ca, cb, cout), dt, beforehand in cases:
         a, b, params = _k1_inputs(gen, batch, h, w, ca, cb, cout, dt, device)
-        out = fused.concat_bn_relu_conv1x1(a, b, **params)
+        operands = _k1_operands(params, dt) if beforehand else None
+        out = fused.concat_bn_relu_conv1x1(a, b, **params, operands=operands)
         torch.cuda.synchronize()
         err, scale = _k1_error(out, a, b, params)
         bound = (BOUND_BF16 if dt == torch.bfloat16 else BOUND_F32) * scale
-        print(f"K1 check B={batch} {h}x{w} {ca}+{cb}->{cout} {str(dt)[6:]}: "
-              f"max abs err {err:.3e} <= bound {bound:.3e}")
+        slice_n = lib.dmm_concat_bn_relu_conv1x1_tile_n(ca, cb, cout)
+        body = (f"tensor cores, N slices of {slice_n}" if dt == torch.bfloat16 and slice_n
+                else "CUDA cores")
+        print(f"K1 check B={batch} {h}x{w} {ca}+{cb}->{cout} {str(dt)[6:]} ({body}; operands "
+              f"{'folded beforehand' if beforehand else 'folded per call'}): max abs err "
+              f"{err:.3e} <= bound {bound:.3e} (err / max|plain| {err / scale:.2e})")
         if not err <= bound:
             raise AssertionError(f"K1 disagrees with its plain version: {err} > {bound}")
         worst["K1"] = max(worst["K1"], err)
@@ -883,17 +958,44 @@ def main() -> int:
     del rgb, lidar
     torch.cuda.empty_cache()
 
-    a, b, params = _k1_inputs(gen, 256, 16, 24, 128, 128, 128, torch.bfloat16, device)
-    k1_ms, k1_plain_ms = _in_turns(
-        lambda: fused.concat_bn_relu_conv1x1(a, b, **params),
-        lambda: fused.concat_bn_relu_conv1x1_reference(a, b, **params), iters=25)
-    rows = a.numel() // a.shape[-1]
-    k1_bound = _bound(2 * rows * (a.shape[-1] + b.shape[-1]) * params["weight"].shape[0],
-                      _nbytes(a, b, *params.values())
-                      + rows * params["weight"].shape[0] * a.element_size(), a.dtype)
-    print(f"{tag} K1 b256 (98304 rows, 128+128->128, bf16): median {k1_ms:.4f} ms; "
-          f"plain version {k1_plain_ms:.4f} ms (50 iterations each, in turns); bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    k1 = {}
+    for key, (batch, h, w, ca, cb, cout) in K1_PATH.items():
+        a, b, params = _k1_inputs(gen, batch, h, w, ca, cb, cout, torch.bfloat16, device)
+        operands = _k1_operands(params, torch.bfloat16)
+        rows = batch * h * w
+
+        def kernel():
+            return fused.concat_bn_relu_conv1x1(a, b, **params, operands=operands)
+
+        fns = [kernel, lambda: fused.concat_bn_relu_conv1x1_reference(a, b, **params),
+               lambda: _k1_operands(params, torch.bfloat16)]
+        if key == "b256":
+            # the bare cuBLAS product of the normalized concat: a yardstick of
+            # the GEMM alone, not K1's function
+            xn = torch.cat([torch.relu(a.float() * operands[0][:ca] + operands[1][:ca]),
+                            torch.relu(b.float() * operands[0][ca:] + operands[1][ca:])],
+                           dim=-1).to(a.dtype).reshape(rows, ca + cb)
+            wt = operands[2][:, :cout].contiguous()
+            fns.append(lambda: torch.matmul(xn, wt))
+        times = _in_turns(*fns, iters=10)
+        device_ms = _device_ms(kernel, iters=20)
+        bound = _k1_bound(a, b, operands, cout)
+        k1[key] = dict(ms=times[0], plain_ms=times[1], fold_ms=times[2], device_ms=device_ms,
+                       bound=bound)
+        yardstick = ""
+        if key == "b256":
+            k1[key]["gemm_ms"] = times[3]
+            k1[key]["gemm_device_ms"] = _device_ms(lambda: torch.matmul(xn, wt), iters=20)
+            yardstick = (f"; the bare cuBLAS product of the normalized concat ({rows}, "
+                         f"{ca + cb}) @ ({ca + cb}, {cout}), a yardstick, {times[3]:.4f} ms "
+                         f"(device time alone {k1[key]['gemm_device_ms']:.4f})")
+            del xn, wt
+        print(f"{tag} K1 {key} ({rows} rows, {ca}+{cb}->{cout}, bf16), operands folded "
+              f"beforehand: median {times[0]:.4f} ms, device time alone {device_ms:.4f} ms; "
+              f"plain version {times[1]:.4f} ms; the fold (fuse_operands, once per fold) "
+              f"{times[2]:.4f} ms{yardstick} (20 iterations each, in turns; device time "
+              f"20 iterations); bound {bound[0]:.4f} ms ({bound[1]})")
+    del a, b, params, operands
     k2_ms, k5_ms, block_bound = {}, {}, {}
     for name, (h, w, c0, layers) in K2_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device)
@@ -1016,8 +1118,14 @@ def main() -> int:
          "source": "dmmfods_tpu_torch/csrc/concat_bn_relu_conv1x1.cu",
          "replaces": "dmmfods_tpu/ops/fused.py:618",
          "launches": launches["K1"], "max_abs_err": worst["K1"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": LIBRARY_MS},
+         "ms": k1["b256"]["ms"], "plain_ms": k1["b256"]["plain_ms"],
+         "bound_ms": k1["b256"]["bound"][0], "bound_by": k1["b256"]["bound"][1],
+         "library_ms": LIBRARY_MS, "device_ms": k1["b256"]["device_ms"],
+         "fold_ms": k1["b256"]["fold_ms"], "gemm_yardstick_ms": k1["b256"]["gemm_ms"],
+         "gemm_yardstick_device_ms": k1["b256"]["gemm_device_ms"],
+         **{f"{name}_{key}": (k1[key]["bound"][0] if name == "bound_ms" else k1[key][name])
+            for key in ("b1", "b8", "b32", "full")
+            for name in ("ms", "device_ms", "plain_ms", "bound_ms")}},
         {"name": "dense_block_strip", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block_strip.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block_strip.py:341",

@@ -70,7 +70,7 @@ from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
 from ..ops.dense_block_strip import eligible as strip_eligible
 from ..ops.dense_block_strip import pack_layer_weights
-from ..ops.fused import concat_bn_relu_conv1x1, fold_bn
+from ..ops.fused import concat_bn_relu_conv1x1, fold_bn, fuse_operands
 from ..ops.phase_head import kernel_weights as phase_head_weights
 from ..ops.phase_head import phase_head
 from ..ops.stem_pool import eligible as stem_pool_eligible
@@ -465,12 +465,14 @@ class ConcatFuse(nn.Module):
     of the two streams (the reference's ``concat_module``).
 
     Eval runs the fused kernel K1 (:func:`..ops.fused.concat_bn_relu_conv1x1`)
-    on NHWC views of the two streams, so the concat never exists; train runs
-    the plain cat-BN-ReLU-conv with batch statistics.
+    on NHWC views of the two streams, so the concat never exists, on
+    operands kept per fold (:meth:`_fuse_operands`); train runs the plain
+    cat-BN-ReLU-conv with batch statistics.
     """
 
     def __init__(self, num_features):
         super().__init__()
+        self._fuse = None                     # (key, dtype, K1's operands)
         self.norm = _batch_norm(2 * num_features)
         self.conv = nn.Conv2d(2 * num_features, num_features, 1, bias=False)
 
@@ -482,8 +484,25 @@ class ConcatFuse(nn.Module):
             scale=self.norm.weight, bias=self.norm.bias,
             mean=self.norm.running_mean, var=self.norm.running_var,
             weight=self.conv.weight, eps=self.norm.eps,
+            operands=self._fuse_operands(a.dtype),
         )
         return out.permute(0, 3, 1, 2)
+
+    def _fuse_operands(self, dtype):
+        """K1's ``(gamma, beta, packed)`` for inputs of ``dtype``
+        (:func:`..ops.fused.fuse_operands`: norm folded, and for bfloat16 the
+        packed conv weight). Made once per fold and kept while the conv
+        weight and the norm's parameters and buffers are the very tensors
+        they were, on the same storage, at the same version."""
+        norm = self.norm
+        tensors = (self.conv.weight, *norm.parameters(), *norm.buffers())
+        if (self._fuse is None or self._fuse[1] != dtype
+                or not _same_tensors(self._fuse[0], tensors)):
+            with torch.no_grad():
+                operands = fuse_operands(norm.weight, norm.bias, norm.running_mean,
+                                         norm.running_var, self.conv.weight, norm.eps, dtype)
+            self._fuse = (_fold_key(tensors), dtype, operands)
+        return self._fuse[2]
 
 
 class ConvTransposeToShape(nn.ConvTranspose2d):

@@ -134,6 +134,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.dmm_stem_pool_mma_smem
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
+    for name in ("dmm_concat_bn_relu_conv1x1_tile_n", "dmm_concat_bn_relu_conv1x1_mma_smem"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
 
 
 def load() -> ctypes.CDLL:

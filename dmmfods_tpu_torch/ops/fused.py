@@ -9,7 +9,13 @@ so the concat never has to exist in memory. This is the counterpart of
 
 * :func:`concat_bn_relu_conv1x1` is the wrapper. For a CUDA tensor it
   launches the hand-written kernel ``csrc/concat_bn_relu_conv1x1.cu`` (or
-  raises); for a CPU tensor it runs the plain version below.
+  raises); for a CPU tensor it runs the plain version below. bfloat16 runs
+  the tensor-core body on the weight packed by :func:`pack_fuse_weights`;
+  float32, the check type, runs the CUDA-core body.
+* :func:`fuse_operands` makes the kernel's operands once per fold: the BN
+  stats folded to ``(gamma, beta)`` in f32 and, for bfloat16, the packed
+  weight. The eval ``ConcatFuse`` keeps them; without them the wrapper makes
+  them per call.
 * :func:`concat_bn_relu_conv1x1_reference` is the plain PyTorch version. The
   CPU tests hold it against the JAX function, and ``chip_smoke.py`` holds the
   kernel against it on the card.
@@ -45,6 +51,8 @@ class LaunchCount:
 
 K1_LAUNCHES = LaunchCount()
 
+GEMM_TILE = 16     # Cout of the packed weight rounds up to two mma.sync n8 tiles
+
 
 def fold_bn(scale, bias, mean, var, eps):
     """Fold BN running stats into a per-channel ``(gamma, beta)`` in f32:
@@ -75,6 +83,36 @@ def concat_bn_relu_conv1x1_reference(a, b, *, scale, bias, mean, var, weight,
     return an @ w[:ca] + bn @ w[ca:]
 
 
+def packed_shape(k, cout):
+    """``(K, N_pad)`` of :func:`pack_fuse_weights` for ``K = Ca + Cb`` inputs
+    and ``Cout`` outputs: ``N_pad`` is ``Cout`` rounded up to 16."""
+    return k, -(-cout // GEMM_TILE) * GEMM_TILE
+
+
+def pack_fuse_weights(weight, dtype=torch.bfloat16):
+    """The 1x1 conv weight ``(Cout, K[, 1, 1])`` as the bf16 kernel's GEMM B
+    operand: ``(K, N_pad)`` row-major, ``weight.reshape(Cout, K).t()`` in
+    its unpadded block and zeros in the pad columns (see
+    :func:`packed_shape`). Only bfloat16 has a packed form."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"only bfloat16 packs the 1x1 weight, got {dtype}")
+    if weight.dim() not in (2, 4):
+        raise ValueError(f"weight must be (Cout, K[, 1, 1]), got {tuple(weight.shape)}")
+    cout, k = weight.shape[:2]
+    packed = torch.zeros(packed_shape(k, cout), dtype=dtype, device=weight.device)
+    packed[:, :cout] = weight.reshape(cout, k).t()
+    return packed
+
+
+def fuse_operands(scale, bias, mean, var, weight, eps, dtype):
+    """K1's ``(gamma, beta, packed)`` for inputs of ``dtype``: the BN stats
+    folded in f32 (:func:`fold_bn`) and, for bfloat16, the packed weight
+    (None for float32, whose kernel reads the conv weight as it is)."""
+    gamma, beta = fold_bn(scale, bias, mean, var, eps)
+    packed = pack_fuse_weights(weight) if dtype == torch.bfloat16 else None
+    return gamma.contiguous(), beta.contiguous(), packed
+
+
 def _check(a, b, scale, bias, mean, var, weight):
     if a.dim() != 4 or b.dim() != 4 or a.shape[:3] != b.shape[:3]:
         raise ValueError(f"a and b must be (B, H, W, C) over the same pixels, "
@@ -96,15 +134,46 @@ def _check(a, b, scale, bias, mean, var, weight):
                          f"{sorted({str(t.device) for t in tensors})}")
 
 
-def concat_bn_relu_conv1x1(a, b, *, scale, bias, mean, var, weight, eps=1e-5):
+def _check_operands(a, k, cout, operands):
+    """Raise unless ``operands`` is :func:`fuse_operands`' ``(gamma, beta,
+    packed)`` for ``a``'s dtype and device, ``K`` inputs and ``Cout``
+    outputs, with ``packed`` on a 16-byte boundary."""
+    gamma, beta, packed = operands
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if (tuple(t.shape) != (k,) or t.dtype != torch.float32 or t.device != a.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 ({k},) on {a.device}, "
+                             f"got a {t.dtype} {tuple(t.shape)} on {t.device}")
+    if a.dtype != torch.bfloat16:
+        if packed is not None:
+            raise TypeError(f"a packed weight goes with bfloat16 inputs, got {a.dtype}")
+        return
+    shape = packed_shape(k, cout)
+    if (packed is None or tuple(packed.shape) != shape or packed.dtype != torch.bfloat16
+            or packed.device != a.device or not packed.is_contiguous()):
+        got = (None if packed is None else
+               f"a {packed.dtype} {tuple(packed.shape)} on {packed.device}")
+        raise ValueError(f"packed must be a contiguous bfloat16 {shape} on {a.device}, "
+                         f"got {got}")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must start on a 16-byte boundary")
+
+
+def concat_bn_relu_conv1x1(a, b, *, scale, bias, mean, var, weight, eps=1e-5,
+                           operands=None):
     """``ReLU(BN(cat(a, b), folded running stats)) @ W`` without the concat.
 
-    Same arguments as :func:`concat_bn_relu_conv1x1_reference`. On a CUDA
-    device ``a`` and ``b`` must be contiguous NHWC tensors in float32 or
-    bfloat16; the kernel launches on the current stream, and its failure
-    raises. On the CPU the plain version runs.
+    Same arguments as :func:`concat_bn_relu_conv1x1_reference`, and
+    ``operands``: ``fuse_operands(...)`` made beforehand for ``a``'s dtype,
+    or None (then they are made per call). On a CUDA device ``a`` and ``b``
+    must be contiguous NHWC tensors in float32 or bfloat16; the kernel
+    launches on the current stream, and its failure raises. On the CPU the
+    plain version runs (``operands`` given are checked, then not used).
     """
     _check(a, b, scale, bias, mean, var, weight)
+    k, cout = a.shape[-1] + b.shape[-1], weight.shape[0]
+    if operands is not None:
+        _check_operands(a, k, cout, operands)
     if a.device.type == "cpu":
         return concat_bn_relu_conv1x1_reference(
             a, b, scale=scale, bias=bias, mean=mean, var=var, weight=weight,
@@ -119,19 +188,20 @@ def concat_bn_relu_conv1x1(a, b, *, scale, bias, mean, var, weight, eps=1e-5):
     lib = _build.load()
     bsz, h, w_, ca = a.shape
     cb = b.shape[-1]
-    cout = weight.shape[0]
     rows = bsz * h * w_
     out = torch.empty((bsz, h, w_, cout), dtype=a.dtype, device=a.device)
     if rows == 0:
         return out
-    gamma, beta = fold_bn(scale, bias, mean, var, eps)
-    gamma, beta = gamma.contiguous(), beta.contiguous()
-    w2 = weight.reshape(cout, ca + cb).to(a.dtype).contiguous()
+    if operands is None:
+        operands = fuse_operands(scale, bias, mean, var, weight, eps, a.dtype)
+    gamma, beta, packed = operands
+    # bfloat16: the packed (K, N_pad) weight; float32: the (Cout, K) weight
+    w = packed if packed is not None else weight.reshape(cout, k).to(a.dtype).contiguous()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.dmm_concat_bn_relu_conv1x1(
             a.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            w2.data_ptr(), out.data_ptr(), rows, ca, cb, cout,
+            w.data_ptr(), out.data_ptr(), rows, ca, cb, cout,
             _DTYPE_CODES[a.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"concat_bn_relu_conv1x1 kernel launch failed: "
