@@ -68,7 +68,18 @@ exit code:
    "on"``: warm-up, the worker, one synchronous request; K1 once, K5 four
    times, K3 once and no K2, K4 or K6 per device batch; served against the
    same weights in f32 on the default path. Every earlier phase runs no K5.
-10. Time, by CUDA events: the engine's forward with the opt-ins in turns
+10. Train: the full-width DenseNet-121 mid-fusion model at 128x192 in bf16
+   (f32 params, random weights from a seed) through
+   ``dmmfods_tpu_torch.trainer``: ten steps of the config's Adam on one
+   fixed batch of 32 frames. Checks that every loss is finite, the last
+   below the first, and that no kernel launches in train mode.
+11. Eval after training: the eval step on the same batch runs K1 once and
+   no other kernel; its metrics are finite, AP and accuracy in [0, 1]; and
+   the trained model's eval logits equal bit for bit those of a fresh model
+   that loaded the trained ``state_dict`` (the eval folds were made before
+   training, so a stale fold shows).
+12. The bf16 step-0 loss against one train step of the same weights in f32.
+13. Time, by CUDA events: the engine's forward with the opt-ins in turns
    with the default config at b1/b8/b32/b256 at 128x192 and at b1 at
    1280x1920, and the K5 path's forward in turns with the default one, then
    ``torch.profiler`` breakdowns of the device time of the default 1280x1920
@@ -90,7 +101,12 @@ exit code:
    yardstick; each also as device time alone (the stream held busy while
    the host enqueues the call, so the event window holds no host time). Each kernel's bound is computed from the
    timed inputs: the larger of its operations over the card's peak rate for
-   the inputs' type and the bytes it must move over the memory rate.
+   the inputs' type and the bytes it must move over the memory rate. Last,
+   the train step at b32 and b128 (median ms, frames/s, peak memory, and
+   its conv work counted by ``FlopCounterMode`` over the bf16 peak as its
+   bound), the eval step at b32, and a ``torch.profiler`` breakdown of a
+   b32 train step by phase (forward, loss, backward, optimizer, metrics)
+   and kernel class.
 
 Its last two lines are a JSON summary of the kernels and the run's result.
 """
@@ -99,6 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -179,6 +196,24 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 # no single PyTorch call computes any of the six kernels' functions
 LIBRARY_MS = None
+# The train phase: DenseNet-121 mid fusion at 128x192 in bf16, TRAIN_STEPS
+# steps of the config's Adam on one fixed batch of TRAIN_BATCH frames; the
+# step is timed at each of TIMED_TRAIN_BATCHES.
+TRAIN_BATCH = 32
+TRAIN_STEPS = 10
+TIMED_TRAIN_BATCHES = (32, 128)
+# The bf16 step-0 loss (sum-reduced BCE over 2.36M pixels) against the same
+# weights' f32 one, relative: the served heat maps of bf16 and f32 differ by
+# ~3e-3 (absolute, in probability) through the same ~130 conv layers, and the
+# loss sums such differences of both signs; train-mode BN takes its batch
+# statistics from the bf16 activations.
+BOUND_TRAIN_LOSS_VS_F32 = 2e-2
+# bench.py's conv_flops_per_frame of this model at 128x192, printed beside
+# the bound for comparison. It counts each stride-2 transposed conv's nine
+# taps at every output pixel, four times that conv's work; the bound itself
+# comes from the step's conv work as FlopCounterMode counts it (10.40 GFLOP
+# a frame forward, 20.64 backward).
+CONV_FLOPS_PER_FRAME = 15.83e9
 
 
 def _card_line() -> str:
@@ -564,12 +599,10 @@ PROFILE_CLASSES = (("K1", ("concat_bn_relu",)), ("K2", ("dense_layer",)),
                    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")))
 
 
-def _print_profile(tag, fn, event_ms, label, steps=3):
-    """Device time of ``fn`` by kernel class over ``steps`` calls after a
-    warm-up (``torch.profiler``'s device events), its busy share of
-    ``event_ms``, and the host's enqueue time of one call."""
+def _profile_calls(fn, steps):
+    """After a warm-up call: the host's enqueue time of one call of ``fn``
+    (ms), and ``torch.profiler``'s events of ``steps`` more calls."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -582,8 +615,18 @@ def _print_profile(tag, fn, event_ms, label, steps=3):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+    return enqueue_ms, prof.events()
+
+
+def _print_profile(tag, fn, event_ms, label, steps=3):
+    """Device time of ``fn`` by kernel class over ``steps`` calls after a
+    warm-up (``torch.profiler``'s device events), its busy share of
+    ``event_ms``, and the host's enqueue time of one call."""
+    from torch.autograd import DeviceType
+
+    enqueue_ms, events = _profile_calls(fn, steps)
     by_class, launches = {}, 0
-    for ev in prof.events():
+    for ev in events:
         if ev.device_type != DeviceType.CUDA:
             continue
         name = ev.name.lower()
@@ -624,6 +667,227 @@ def _serve_buckets(engine, rng, h, w, label):
         if bucket == 8:
             kept = (rgb, lidar, out)
     return total, kept
+
+
+def _train_batch(gen, batch, device):
+    """A fixed training batch: RGB in [0, 1), one LiDAR channel, and heat
+    maps in [0, 1] (uniform to the 4th power: ~8.5% of each class's pixels
+    at or above the 0.7 threshold)."""
+    import torch
+
+    rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen)
+    lidar = torch.rand(batch, HEIGHT, WIDTH, 1, generator=gen)
+    heat = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen) ** 4
+    return rgb.to(device), lidar.to(device), heat.to(device)
+
+
+def _check_eval_metrics(metrics):
+    """Raise unless every eval metric is finite and AP and accuracy lie in
+    [0, 1]."""
+    import torch
+
+    for key, value in metrics.items():
+        if not torch.isfinite(value.float()).all():
+            raise AssertionError(f"eval metric {key} is not finite: {value}")
+    for key in ("ap_per_class", "acc_per_class"):
+        if not ((metrics[key] >= 0).all() and (metrics[key] <= 1).all()):
+            raise AssertionError(f"eval {key} outside [0, 1]: {metrics[key]}")
+
+
+def _train(bundle, cfg, device, gen, path_counts, batch=TRAIN_BATCH, steps=TRAIN_STEPS):
+    """Phases 10-12 on ``bundle``: ``steps`` train steps on one batch with no
+    kernel launched, the eval step after them with K1 once and the trained
+    eval logits equal bit for bit to a fresh model's that loaded the trained
+    state_dict, and the step-0 loss against the same weights in f32. Returns
+    the train state, the step and the eval step."""
+    import torch
+
+    from dmmfods_tpu_torch import trainer
+    from dmmfods_tpu_torch.models.dense_unet_lidar import DenseUNetLidar
+
+    module = bundle.module
+    initial = {k: v.clone() for k, v in module.state_dict().items()}
+    rgb, lidar, heat = _train_batch(gen, batch, device)
+    forward = trainer.make_forward(module, cfg)
+    forward(rgb, lidar)                   # the eval folds exist before training
+    optimizer = trainer.make_optimizer(cfg, module.parameters())
+    state = trainer.create_train_state(bundle, optimizer)
+    step = trainer.make_train_step(module, optimizer, cfg)
+    torch.cuda.synchronize(device)
+
+    # 10. train --------------------------------------------------------------
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, rgb, lidar, heat)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).tolist()
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    path_counts.append(counts)
+    print(f"train: {steps} steps of densenet121_u_lidar {bundle.spec.fusion} fusion, "
+          f"{str(bundle.spec.dtype)[6:]}, b{batch} {HEIGHT}x{WIDTH}, Adam (lr "
+          f"{cfg.optimizer.learning_rate}, amsgrad {cfg.optimizer.amsgrad}, weight decay "
+          f"{cfg.optimizer.weight_decay}) on one batch in {train_s:.2f} s wall; losses "
+          + ", ".join(f"{x:.1f}" for x in losses) + f"; launches {counts}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not lower a finite loss: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"a kernel launched in train mode: {counts}")
+    for key in ("iou_per_class", "acc_per_class", "loss_per_class", "iou_nans"):
+        if tuple(metrics[key].shape) != (3,) or not torch.isfinite(metrics[key]).all():
+            raise AssertionError(f"train metric {key}: {metrics[key]}")
+
+    # 11. eval after training ----------------------------------------------
+    eval_step = trainer.make_eval_step(module, cfg)
+    _reset_counts()
+    metrics = eval_step(state, rgb, lidar, heat)
+    torch.cuda.synchronize(device)
+    path_counts.append(_counts())
+    print("eval step after training: " + ", ".join(
+        f"{k} {[round(x, 5) for x in v.float().reshape(-1).tolist()]}"
+        for k, v in metrics.items()
+        if k != "ap_bin_counts") + f", ap_bin_counts {int(metrics['ap_bin_counts'][1].sum())} "
+        f"pixels; ", end="")
+    _per_batch(path_counts[-1], 1, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
+    _check_eval_metrics(metrics)
+    trained = forward(rgb, lidar)
+    fresh = DenseUNetLidar(bundle.spec, generator=torch.Generator().manual_seed(SEED + 1))
+    fresh = fresh.to(device, memory_format=torch.channels_last)
+    fresh.load_state_dict(module.state_dict())
+    _check_equal("eval logits of the trained model", "a fresh model loaded with its "
+                 "state_dict", f"b{batch}", trained, trainer.make_forward(fresh, cfg)(rgb, lidar))
+    del fresh, trained
+
+    # 12. the step-0 loss against f32 ------------------------------------------
+    f32 = DenseUNetLidar(dataclasses.replace(bundle.spec, dtype=torch.float32))
+    f32 = f32.to(device, memory_format=torch.channels_last)
+    f32.load_state_dict(initial)
+    optimizer32 = trainer.make_optimizer(cfg, f32.parameters())
+    _, metrics32 = trainer.make_train_step(f32, optimizer32, cfg)(
+        trainer.TrainState(f32, optimizer32), rgb, lidar, heat)
+    loss32 = metrics32["loss"].item()
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    print(f"step-0 loss {str(bundle.spec.dtype)[6:]} {losses[0]:.2f} vs f32 (TF32 off) "
+          f"{loss32:.2f}: relative "
+          f"difference {rel:.3e} <= bound {BOUND_TRAIN_LOSS_VS_F32}")
+    if not rel <= BOUND_TRAIN_LOSS_VS_F32:
+        raise AssertionError(f"bf16 step-0 loss {losses[0]} disagrees with f32 {loss32}")
+    del f32, optimizer32, initial
+    return state, step, eval_step
+
+
+# the train step's phases (record_function ranges of trainer.py and the
+# optimizer's own), and device kernels by name
+TRAIN_PHASES = (("optimizer", "Optimizer.step#"), ("loss", "train_step/loss"),
+                ("metrics", "train_step/metrics"), ("forward", "train_step/forward"),
+                ("backward", "train_step/backward"))
+TRAIN_KERNELS = (("BN", ("bn_", "batch_norm", "batchnorm", "welford")),
+                 ("convolutions", ("conv", "cudnn", "cutlass", "xmma", "gemm", "sm90",
+                                   "nvjet", "implicit")),
+                 ("concat copies", ("catarray",)), ("pooling", ("pool",)),
+                 ("optimizer", ("multi_tensor",)),
+                 ("copies and fills", ("memcpy", "memset", "copy")),
+                 ("elementwise and reductions", ("elementwise", "vectorized", "unrolled",
+                                                 "reduce", "scatter", "scan", "sort")))
+
+
+def _train_phase(event):
+    """The train-step phase of a CPU op, from its ancestors: autograd's
+    backward ops run on their own thread under ``evaluate_function``."""
+    while event is not None:
+        if event.name.startswith("autograd::engine::evaluate_function"):
+            return "backward"
+        for phase, prefix in TRAIN_PHASES:
+            if event.name.startswith(prefix):
+                return phase
+        event = event.cpu_parent
+    return "outside the step's ranges"
+
+
+def _print_train_profile(tag, fn, event_ms, label, steps=3):
+    """Device time of train steps by phase and kernel class over ``steps``
+    steps after a warm-up: each kernel is charged to the phase of the CPU op
+    that launched it. With the busy share of ``event_ms`` and the host's
+    enqueue time of one step."""
+    from torch.autograd import DeviceType
+
+    enqueue_ms, events = _profile_calls(fn, steps)
+    # the device timeline also holds a span per record_function range
+    # (a user annotation): not device work
+    total = sum(ev.time_range.elapsed_us() for ev in events
+                if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation
+                ) / 1e3 / steps
+    if total <= 0:
+        raise AssertionError(f"the profile of the {label} shows no device time")
+    host = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.is_user_annotation:
+            phase = next((p for p, prefix in TRAIN_PHASES if ev.name.startswith(prefix)),
+                         None)
+            if phase is not None:
+                host[phase] = host.get(phase, 0.0) + ev.time_range.elapsed_us() / 1e3 / steps
+    by_class, launches = {}, 0
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        phase = _train_phase(ev)
+        for kernel in ev.kernels:
+            name = kernel.name.lower()
+            cls = next((c for c, keys in TRAIN_KERNELS if any(k in name for k in keys)),
+                       "other")
+            key = f"{phase}: {cls}"
+            by_class[key] = by_class.get(key, 0.0) + kernel.duration / 1e3 / steps
+            launches += 1
+    attributed = sum(by_class.values())
+    print(f"{tag} profile of the {label} ({steps} steps after a warm-up): {total:.4f} ms "
+          f"of device time per step in {launches / steps:.0f} attributed device operations "
+          f"({attributed:.4f} ms attributed), busy share {total / event_ms:.3f} of the "
+          f"{event_ms:.4f} ms event median; the host enqueues one step in {enqueue_ms:.4f} "
+          f"ms; " + ", ".join(f"{c} {ms:.4f} ms ({ms / total:.1%})" for c, ms in
+                              sorted(by_class.items(), key=lambda kv: -kv[1])))
+    print(f"{tag} host time of the {label} by phase, under the profiler (each range's "
+          f"wall time on the host, per step): " + ", ".join(
+              f"{phase} {host.get(phase, 0.0):.4f} ms" for phase, _ in TRAIN_PHASES))
+
+
+def _time_train(tag, state, step, eval_step, gen, device):
+    """The train step's median ms, frames/s and peak memory at each of
+    ``TIMED_TRAIN_BATCHES`` beside the conv-work bound, the eval step at the
+    first, and the profile of a train step at the first."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    timed = {}
+    for batch in TIMED_TRAIN_BATCHES:
+        data = _train_batch(gen, batch, device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, _ = _median_ms(lambda: step(state, *data), iters=10)
+        peak = torch.cuda.max_memory_allocated(device)
+        with FlopCounterMode(display=False) as counter:
+            step(state, *data)
+        flops = counter.get_total_flops()
+        bound_ms = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+        issue_ms = 3 * CONV_FLOPS_PER_FRAME * batch / PEAK_FLOPS["torch.bfloat16"] * 1e3
+        timed[batch] = dict(ms=ms, data=data)
+        print(f"{tag} train step b{batch} bf16 {HEIGHT}x{WIDTH}: median {ms:.4f} ms, "
+              f"{batch / ms * 1e3:.1f} frames/s (10 iterations after 3 of warm-up), peak "
+              f"memory allocated {peak / 2**30:.3f} GiB; conv work {flops / 1e12:.4f} TFLOP "
+              f"a step (FlopCounterMode: forward and backward convolutions), bound "
+              f"{bound_ms:.4f} ms at 989 TFLOP/s, the step at {bound_ms / ms:.4f} of it "
+              f"(bench.py's count, 3 x {CONV_FLOPS_PER_FRAME / 1e9:.2f} GFLOP a frame, gives "
+              f"{issue_ms:.4f} ms)")
+    data = timed[TIMED_TRAIN_BATCHES[0]]["data"]
+    torch.cuda.reset_peak_memory_stats(device)
+    eval_ms, _ = _median_ms(lambda: eval_step(state, *data), iters=10)
+    print(f"{tag} eval step b{TIMED_TRAIN_BATCHES[0]} bf16 {HEIGHT}x{WIDTH}: median "
+          f"{eval_ms:.4f} ms, {TIMED_TRAIN_BATCHES[0] / eval_ms * 1e3:.1f} frames/s (10 "
+          f"iterations), peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
+    _print_train_profile(tag, lambda: step(state, *data), timed[TIMED_TRAIN_BATCHES[0]]["ms"],
+                         f"b{TIMED_TRAIN_BATCHES[0]} bf16 {HEIGHT}x{WIDTH} train step")
 
 
 def main() -> int:
@@ -771,7 +1035,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
-        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5 = (get_config(host) for _ in range(5))
+        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train = (get_config(host) for _ in range(6))
     for c in (cfg3, cfg3_opt, cfg3_k5):
         c.model.concat_before_block_num = 3
     cfg3_k5.gpu.dense_block_strip = "on"
@@ -919,7 +1183,13 @@ def main() -> int:
                    f"{FULL_HEIGHT}x{FULL_WIDTH} K5 path")
     torch.cuda.empty_cache()
 
-    # 10. time -----------------------------------------------------------------
+    # 10-12. train, eval after training, the step-0 loss against f32 ----------
+    bundle_train = densenet121_u_lidar(config=cfg_train, device=device, seed=SEED)
+    train_state, train_step, eval_step = _train(bundle_train, cfg_train, device, gen,
+                                                path_counts)
+    torch.cuda.empty_cache()
+
+    # 13. time -----------------------------------------------------------------
     tag = f"[{card}]"
     for batch in (1, 8, 32, 256):
         rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
@@ -1111,6 +1381,10 @@ def main() -> int:
               f"bf16) {model_ms:.4f} ms; the packing (pack_stem_weights, once per fold) "
               f"{pack_ms:.4f} ms (20 iterations each, in turns); bound {bound[0]:.4f} ms "
               f"({bound[1]})")
+
+    del x, folded, packed, x_lo, raw, consts, weights
+    torch.cuda.empty_cache()
+    _time_train(tag, train_state, train_step, eval_step, gen, device)
 
     launches = {name: sum(c[name] for c in path_counts) for name in worst}
     print(json.dumps({"kernels": [

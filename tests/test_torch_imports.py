@@ -1,8 +1,8 @@
 """The port imports no JAX and nothing of the JAX package. Checked in a
 fresh interpreter, since this test process has both loaded already
 (``conftest.py``): import every module of ``dmmfods_tpu_torch`` and
-``chip_smoke``, build a config, run a tiny forward on the CPU, and look at
-``sys.modules``."""
+``chip_smoke``, build a config, run a tiny forward, train step and eval step
+on the CPU, and look at ``sys.modules``."""
 
 import subprocess
 import sys
@@ -28,6 +28,16 @@ for opt_in in ({}, {"dense_block_impl": "pallas", "stem_pool_strip": "on",
     with torch.no_grad():
         out = DenseUNetLidar(spec).eval()(torch.rand(1, 64, 64, 3), torch.rand(1, 64, 64, 1))
     assert out.shape == (1, 64, 64, 3), out.shape
+from dmmfods_tpu_torch import trainer
+cfg = EDict(create_config("host"))
+module = DenseUNetLidar(ModelSpec(growth_rate=8, block_config=(1, 1), num_init_features=8))
+optimizer = trainer.make_optimizer(cfg, module.parameters())
+state = trainer.TrainState(module, optimizer)
+batch = (torch.rand(2, 64, 64, 3), torch.rand(2, 64, 64, 1), torch.rand(2, 64, 64, 3))
+state, metrics = trainer.make_train_step(module, optimizer, cfg)(state, *batch)
+assert torch.isfinite(metrics["loss"])
+assert sorted(trainer.make_eval_step(module, cfg)(state, *batch)) == sorted(
+    list(metrics) + ["ap_per_class", "ap_bin_counts"])
 assert "jax" not in sys.modules and "flax" not in sys.modules, sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
 assert not [m for m in sys.modules if m.split(".")[0] == "dmmfods_tpu"], sorted(
@@ -43,5 +53,6 @@ def test_port_imports_no_jax():
     imported = set(proc.stdout.split())
     for name in ("config", "ops.fused", "ops._build", "ops.dense_block",
                  "ops.dense_block_strip", "ops.phase_head", "ops.stem_pool",
-                 "models.dense_unet_lidar", "models.weights", "serving"):
+                 "models.dense_unet_lidar", "models.weights", "serving", "losses",
+                 "metrics", "optim", "trainer"):
         assert "dmmfods_tpu_torch." + name in imported, proc.stdout
