@@ -79,7 +79,28 @@ exit code:
    that loaded the trained ``state_dict`` (the eval folds were made before
    training, so a stale fold shows).
 12. The bf16 step-0 loss against one train step of the same weights in f32.
-13. Time, by CUDA events: the engine's forward with the opt-ins in turns
+13. Raw records (preprocessing in the step), on the trained model and its
+   optimizer: a b32 batch of ``bench_suite.py``'s config 5 traffic (32,768
+   points and 64 boxes a frame, 1280x1920 full resolution) from the port's
+   ``make_raw_batch`` in both splat modes, the host splat by the native
+   library, which must have built (``data/native_io.py``, with the kernels
+   in phase 2). Checks ``rasterize_heatmaps_direct`` on the card equal to
+   the CPU's, ``lidar_points_to_model_input_pooled`` on the card against the
+   native host splat (1e-4), three steps each of ``make_train_step_ht`` and
+   ``make_train_step_raw`` with finite losses and no kernel launched,
+   ``make_eval_step_ht`` and ``make_eval_step_raw`` each with K1 once and no
+   other kernel and finite metrics, and ``make_eval_step_ht`` equal bit for
+   bit to ``make_eval_step`` on the rasterized maps.
+14. DenseNet-161 at 1280x1920 batch 1 with mid fusion before block 3: one
+   synchronous request, the heat maps against the same weights in f32. This
+   phase pins an open gap, not a ported state: JAX's gates run K2 on four
+   blocks and K3 once here, but growth 48 (K 192) and head c_mid 96 are past
+   what the port's K2-K5 and K3 take, so the port runs K1 once and its plain
+   blocks and head. The phase counts JAX's decisions on the blocks and head
+   the request ran (the gates with ``kernel_limits=False``) beside the
+   port's, and fails if either moves: a kernel widened to these shapes must
+   change this phase.
+15. Time, by CUDA events: the engine's forward with the opt-ins in turns
    with the default config at b1/b8/b32/b256 at 128x192 and at b1 at
    1280x1920, and the K5 path's forward in turns with the default one, then
    ``torch.profiler`` breakdowns of the device time of the default 1280x1920
@@ -106,7 +127,11 @@ exit code:
    its conv work counted by ``FlopCounterMode`` over the bf16 peak as its
    bound), the eval step at b32, and a ``torch.profiler`` breakdown of a
    b32 train step by phase (forward, loss, backward, optimizer, metrics)
-   and kernel class.
+   and kernel class. DenseNet-161's 1280x1920 forward. The raw-record b32
+   steps (``ht``, ``raw``) in turns with the dense step on the same frames,
+   each profiled by phase with ``train_step/preprocess`` apart; the
+   rasterizer and the device splat alone (by events and as device time
+   alone); the host splat, native at two threads and its numpy form once.
 
 Its last two lines are a JSON summary of the kernels and the run's result.
 """
@@ -119,6 +144,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SEED = 0
@@ -214,6 +240,19 @@ BOUND_TRAIN_LOSS_VS_F32 = 2e-2
 # comes from the step's conv work as FlopCounterMode counts it (10.40 GFLOP
 # a frame forward, 20.64 backward).
 CONV_FLOPS_PER_FRAME = 15.83e9
+# The raw-record phase: bench_suite.py's config 5 traffic at TRAIN_BATCH,
+# the config's tpu.max_points points a frame and 64 boxes, on the 128x192
+# model of the train phase; the host splat timed at the config's
+# tpu.splat_threads. The device splat against the native host splat: the
+# binning x * -6.2 + 255 may be one FMA on one side.
+RAW_BOXES = 64
+RAW_STEPS = 3
+BOUND_SPLAT = 1e-4
+# DenseNet-161 (growth 48, c_mid 96) at 1280x1920 b1 with mid fusion before
+# block 3: JAX's gates run K2 on blocks 1 and 2 of both streams and K3 once;
+# the port's K2-K5 and K3 do not take those widths yet (open kernel work)
+NUM_PARAMS_DENSENET161_CONFIG3 = 85_911_080
+DENSENET161_JAX_KERNELS = dict(K2=4, K3=1)
 
 
 def _card_line() -> str:
@@ -782,7 +821,7 @@ def _train(bundle, cfg, device, gen, path_counts, batch=TRAIN_BATCH, steps=TRAIN
 # optimizer's own), and device kernels by name
 TRAIN_PHASES = (("optimizer", "Optimizer.step#"), ("loss", "train_step/loss"),
                 ("metrics", "train_step/metrics"), ("forward", "train_step/forward"),
-                ("backward", "train_step/backward"))
+                ("backward", "train_step/backward"), ("preprocess", "train_step/preprocess"))
 TRAIN_KERNELS = (("BN", ("bn_", "batch_norm", "batchnorm", "welford")),
                  ("convolutions", ("conv", "cudnn", "cutlass", "xmma", "gemm", "sm90",
                                    "nvjet", "implicit")),
@@ -850,6 +889,7 @@ def _print_train_profile(tag, fn, event_ms, label, steps=3):
     print(f"{tag} host time of the {label} by phase, under the profiler (each range's "
           f"wall time on the host, per step): " + ", ".join(
               f"{phase} {host.get(phase, 0.0):.4f} ms" for phase, _ in TRAIN_PHASES))
+    return by_class, host
 
 
 def _time_train(tag, state, step, eval_step, gen, device):
@@ -890,6 +930,241 @@ def _time_train(tag, state, step, eval_step, gen, device):
                          f"b{TIMED_TRAIN_BATCHES[0]} bf16 {HEIGHT}x{WIDTH} train step")
 
 
+def _raw_batches(cfg, device):
+    """Config 5's raw-record batch in both splat modes, from the same draws:
+    ``host``, the host-splat ``(image, lidar, boxes)``, and ``raw``, ``(image,
+    points, num_valid, boxes)``, as tensors on ``device``; with the points as
+    the host splat takes them (``concat``, ``offsets``). Raises unless the
+    native library is available, which is exactly when
+    ``host_preprocess.splat_pooled_batch`` serves the host splat with it."""
+    import numpy as np
+    import torch
+
+    from dmmfods_tpu_torch.data import native_io
+    from dmmfods_tpu_torch.data.synthetic import make_raw_batch
+
+    if not native_io.available():
+        raise AssertionError(f"the native splat library did not build: "
+                             f"{native_io.build_error}")
+    t0 = time.perf_counter()
+    kwargs = dict(max_points=cfg.tpu.max_points, max_boxes=RAW_BOXES)
+    host = make_raw_batch(TRAIN_BATCH, HEIGHT, WIDTH, SEED, splat="host", **kwargs)
+    raw = make_raw_batch(TRAIN_BATCH, HEIGHT, WIDTH, SEED, splat="device", **kwargs)
+    make_s = time.perf_counter() - t0
+    if not (np.array_equal(host[0], raw[0]) and np.array_equal(host[2], raw[3])):
+        raise AssertionError("the two splat modes drew different frames")
+    _, points, num_valid, boxes = raw
+    print(f"raw-record batch (make_raw_batch, {make_s:.2f} s for both modes on the host): "
+          f"b{TRAIN_BATCH} {HEIGHT}x{WIDTH} ({FULL_HEIGHT}x{FULL_WIDTH} full resolution), "
+          f"{cfg.tpu.max_points} points a frame ({int(num_valid.sum())} valid in all), {RAW_BOXES} "
+          f"boxes a frame ({int((boxes[..., 0] != 0).sum())} valid in all); the host splat "
+          f"by the native library {native_io.library_path()}")
+    concat = np.concatenate([p[:n] for p, n in zip(points, num_valid)])
+    offsets = np.cumsum([0] + [int(n) for n in num_valid])
+    return dict(host=tuple(torch.from_numpy(x).to(device) for x in host),
+                raw=tuple(torch.from_numpy(x).to(device) for x in raw),
+                concat=concat, offsets=offsets)
+
+
+def _raw_record(state, cfg, device, path_counts):
+    """Phase 13 on the train phase's model and optimizer: the rasterizer on
+    the card equal to the CPU's, the device splat against the native host
+    splat, ``RAW_STEPS`` steps of ``make_train_step_ht`` and of
+    ``make_train_step_raw`` with finite losses and no kernel launched, each
+    eval twin with K1 once and finite metrics, and ``make_eval_step_ht``
+    equal to ``make_eval_step`` on the rasterized maps. Returns what the
+    timing phase takes."""
+    import torch
+
+    from dmmfods_tpu_torch import trainer
+    from dmmfods_tpu_torch.ops import preprocess as pp
+
+    data = _raw_batches(cfg, device)
+    image, lidar, boxes = data["host"]
+    _, points, num_valid, _ = data["raw"]
+    full = dict(full_height=FULL_HEIGHT, full_width=FULL_WIDTH)
+    heat = trainer._make_heatmap_rasterizer(**full)(image, boxes)
+    _check_equal("rasterize_heatmaps_direct on the card", "on the CPU",
+                 f"b{TRAIN_BATCH} {RAW_BOXES} boxes", heat.cpu(),
+                 pp.rasterize_heatmaps_direct(boxes.cpu(), HEIGHT, WIDTH, FULL_HEIGHT // HEIGHT))
+    splat = pp.lidar_points_to_model_input_pooled(points, num_valid, FULL_HEIGHT, FULL_WIDTH)
+    diff = (splat - lidar).abs().max().item()
+    print(f"device splat (lidar_points_to_model_input_pooled) vs the native host splat "
+          f"{tuple(lidar.shape)}: max abs diff {diff:.3e} <= bound {BOUND_SPLAT}")
+    if not diff <= BOUND_SPLAT:
+        raise AssertionError(f"the device splat disagrees with the host splat: {diff}")
+
+    module, optimizer = state.module, state.optimizer
+    steps = {"ht": (trainer.make_train_step_ht(module, optimizer, cfg, **full), data["host"]),
+             "raw": (trainer.make_train_step_raw(module, optimizer, cfg, **full), data["raw"])}
+    for name, (step, batch) in steps.items():
+        _reset_counts()
+        losses = []
+        for _ in range(RAW_STEPS):
+            state, metrics = step(state, *batch)
+            losses.append(metrics["loss"])
+        losses = torch.stack(losses).tolist()
+        counts = _counts()
+        path_counts.append(counts)
+        print(f"make_train_step_{name}: {RAW_STEPS} steps at b{TRAIN_BATCH}, losses "
+              + ", ".join(f"{x:.1f}" for x in losses) + f"; launches {counts}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"make_train_step_{name} losses not finite: {losses}")
+        if any(counts.values()):
+            raise AssertionError(f"a kernel launched in make_train_step_{name}: {counts}")
+    evals = {"ht": (trainer.make_eval_step_ht(module, cfg, **full), data["host"]),
+             "raw": (trainer.make_eval_step_raw(module, cfg, **full), data["raw"])}
+    for name, (step, batch) in evals.items():
+        _reset_counts()
+        metrics = step(state, *batch)
+        torch.cuda.synchronize(device)
+        path_counts.append(_counts())
+        print(f"make_eval_step_{name} b{TRAIN_BATCH}: loss {metrics['loss'].item():.2f}, AP "
+              f"{[round(x, 5) for x in metrics['ap_per_class'].tolist()]}; ", end="")
+        _per_batch(path_counts[-1], 1, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
+        _check_eval_metrics(metrics)
+    got = evals["ht"][0](state, image, lidar, boxes)
+    want = trainer.make_eval_step(module, cfg)(state, image, lidar, heat)
+    same = [key for key in want if torch.equal(got[key], want[key])]
+    print(f"make_eval_step_ht vs make_eval_step on (image, lidar, rasterize(image, boxes)): "
+          f"{len(same)} of {len(want)} metrics equal bit for bit")
+    if len(same) != len(want) or set(got) != set(want):
+        raise AssertionError(f"make_eval_step_ht differs from make_eval_step in "
+                             f"{sorted(set(want) - set(same))}")
+    return dict(data=data, heat=heat, steps=steps)
+
+
+def _gate_decisions(module, run):
+    """Run ``run()`` and count, over the dense blocks and heads it called,
+    where JAX's gates pick the strip kernel (K2 / K5) and the head kernel
+    (K3), and where the port's gates, with the kernels' limits, do:
+    ``(jax, port)``, each ``dict(K2=, K3=)``."""
+    from dmmfods_tpu_torch.models.dense_unet_lidar import DenseBlock, Head
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, [a.to("meta") for a in args])))
+        for m in module.modules() if isinstance(m, (DenseBlock, Head))]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = []
+    for limits in (False, True):
+        strip = sum(m._strip_eligible(*a, kernel_limits=limits)
+                    for m, a in calls if isinstance(m, DenseBlock))
+        head = sum(m._kernel_eligible(*a, kernel_limits=limits)
+                   for m, a in calls if isinstance(m, Head))
+        counts.append(dict(K2=strip, K3=head))
+    return tuple(counts)
+
+
+def _serve_densenet161(cfg, device, rng, path_counts):
+    """Phase 14: DenseNet-161 (growth 48, head c_mid 96) served at 1280x1920
+    b1 with mid fusion before block 3: one synchronous request, its heat
+    maps finite and held against the same weights in f32. JAX's gates take
+    K2 on four blocks and K3 once here; the port's kernels do not take these
+    widths, so its device batch runs K1 once and no other kernel. Both are
+    counted and pinned: the gap is open kernel work. Returns the engine."""
+    import numpy as np
+
+    from dmmfods_tpu_torch.models.dense_unet_lidar import densenet161_u_lidar
+    from dmmfods_tpu_torch.serving import InferenceEngine
+
+    bundle = densenet161_u_lidar(config=cfg, device=device, seed=SEED)
+    if bundle.num_params != NUM_PARAMS_DENSENET161_CONFIG3:
+        raise AssertionError(f"{bundle.num_params} params, want "
+                             f"{NUM_PARAMS_DENSENET161_CONFIG3}")
+    print(f"model: densenet161_u_lidar, {bundle.num_params} params, {bundle.spec.fusion} "
+          f"fusion before block {bundle.spec.concat_before_block_num}, {bundle.spec.dtype}, "
+          f"{FULL_HEIGHT}x{FULL_WIDTH}, default config")
+    engine = InferenceEngine(bundle, buckets=(1,), height=FULL_HEIGHT, width=FULL_WIDTH)
+    rgb = rng.uniform(0, 1, (1, FULL_HEIGHT, FULL_WIDTH, 3)).astype(np.float32)
+    lidar = rng.uniform(0, 1, (1, FULL_HEIGHT, FULL_WIDTH, 1)).astype(np.float32)
+    served = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    jax_gates, port_gates = _gate_decisions(bundle.module,
+                                            lambda: served.append(engine.run(rgb, lidar)))
+    path_counts.append(_counts())
+    out = served[0]
+    _check_heat_maps([(rgb, lidar)], [out], FULL_HEIGHT, FULL_WIDTH)
+    print(f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH}: one synchronous request in "
+          f"{time.perf_counter() - t0:.2f} s wall (the first call); ", end="")
+    _per_batch(path_counts[-1], engine.device_batches, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
+    print(f"densenet161 gap (open kernel work): JAX's gates run {jax_gates} here, the port "
+          f"{port_gates}: growth 48 (K 192) is past K2/K4/K5's layer body (growth <= 32, K "
+          f"<= 128) and c_mid 96 past K3's (<= 64), so the plain blocks and head run")
+    if jax_gates != DENSENET161_JAX_KERNELS or port_gates != dict(K2=0, K3=0):
+        raise AssertionError(f"DenseNet-161's gate decisions moved: JAX {jax_gates} (want "
+                             f"{DENSENET161_JAX_KERNELS}), port {port_gates} (want none); "
+                             f"update this phase and ROADMAP.md section 2")
+    _served_vs_f32(bundle, rgb, lidar, out, device, f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH}")
+    return engine
+
+
+def _time_raw(tag, state, dense_step, raw, cfg):
+    """The raw-record steps at b32 in turns with the dense step on the same
+    frames (maps made beforehand), each step's device time by phase
+    (``train_step/preprocess`` apart), the rasterizer and the device splat
+    alone, and the host splat: native at the config's ``tpu.splat_threads``
+    threads, and its numpy form once."""
+    import torch
+
+    from dmmfods_tpu_torch.data import host_preprocess, native_io
+    from dmmfods_tpu_torch.ops import preprocess as pp
+
+    (ht_step, host_batch), (raw_step, raw_batch) = raw["steps"]["ht"], raw["steps"]["raw"]
+    image, lidar, boxes = host_batch
+    _, points, num_valid, _ = raw_batch
+    dense_ms, ht_ms, raw_ms = _in_turns(lambda: dense_step(state, image, lidar, raw["heat"]),
+                                        lambda: ht_step(state, *host_batch),
+                                        lambda: raw_step(state, *raw_batch), iters=10)
+    print(f"{tag} train step b{TRAIN_BATCH} bf16 {HEIGHT}x{WIDTH} on the raw-record frames "
+          f"({cfg.tpu.max_points} points, {RAW_BOXES} boxes a frame): dense (make_train_step, maps "
+          f"made beforehand) median {dense_ms:.4f} ms ({TRAIN_BATCH / dense_ms * 1e3:.1f} "
+          f"frames/s); ht (make_train_step_ht: host-splat LiDAR, heat maps rasterized in the "
+          f"step) {ht_ms:.4f} ms ({TRAIN_BATCH / ht_ms * 1e3:.1f} frames/s); raw "
+          f"(make_train_step_raw: splat and rasterization in the step) {raw_ms:.4f} ms "
+          f"({TRAIN_BATCH / raw_ms * 1e3:.1f} frames/s) (20 iterations each, in turns)")
+    for name, step, batch, ms in (("ht", ht_step, host_batch, ht_ms),
+                                  ("raw", raw_step, raw_batch, raw_ms)):
+        by_class, host = _print_train_profile(
+            tag, lambda: step(state, *batch), ms,
+            f"b{TRAIN_BATCH} bf16 {HEIGHT}x{WIDTH} make_train_step_{name} step")
+        pre = sum(v for k, v in by_class.items() if k.startswith("preprocess:"))
+        print(f"{tag} train_step/preprocess of make_train_step_{name}: {pre:.4f} ms of device "
+              f"time a step, {host.get('preprocess', 0.0):.4f} ms of host (profiler)")
+
+    def rasterize():
+        return pp.rasterize_heatmaps_direct(boxes, HEIGHT, WIDTH, FULL_HEIGHT // HEIGHT)
+
+    def splat():
+        return pp.lidar_points_to_model_input_pooled(points, num_valid, FULL_HEIGHT, FULL_WIDTH)
+
+    rasterize_ms, splat_ms = _in_turns(rasterize, splat, iters=10)
+    rasterize_dev, splat_dev = _device_ms(rasterize, iters=20), _device_ms(splat, iters=20)
+    print(f"{tag} rasterize_heatmaps_direct b{TRAIN_BATCH} {RAW_BOXES} boxes onto {HEIGHT}x"
+          f"{WIDTH}: median {rasterize_ms:.4f} ms, device time alone {rasterize_dev:.4f} ms; "
+          f"lidar_points_to_model_input_pooled b{TRAIN_BATCH} {cfg.tpu.max_points} points: median "
+          f"{splat_ms:.4f} ms, device time alone {splat_dev:.4f} ms (20 iterations each, in "
+          f"turns; device time 20 iterations)")
+    concat, offsets = raw["data"]["concat"], raw["data"]["offsets"]
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        native_io.splat_pooled_batch(concat, offsets, FULL_HEIGHT, FULL_WIDTH,
+                                     cfg.tpu.splat_threads)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    host_preprocess._splat_pooled_batch_numpy(concat, offsets, FULL_HEIGHT, FULL_WIDTH)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{tag} host splat b{TRAIN_BATCH} ({len(concat)} points): native (dmmfods_io.cpp, "
+          f"{cfg.tpu.splat_threads} threads) median {_median(times):.4f} ms a batch (10 calls, host "
+          f"wall time); numpy form {numpy_ms:.4f} ms (once)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -900,6 +1175,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from dmmfods_tpu_torch.config import get_config
+    from dmmfods_tpu_torch.data import native_io
     from dmmfods_tpu_torch.models.dense_unet_lidar import (DenseBlock, Encoder, ModelSpec,
                                                            densenet121_u_lidar)
     from dmmfods_tpu_torch.ops import (_build, dense_block, dense_block_strip, fused,
@@ -918,8 +1194,15 @@ def main() -> int:
 
     # 2. build -----------------------------------------------------------------
     t0 = time.perf_counter()
+    native = threading.Thread(target=native_io.load)      # g++, beside nvcc
+    native.start()
     lib = _build.load()
     load_s = time.perf_counter() - t0
+    native.join()
+    if not native_io.available():
+        raise AssertionError(f"the native splat library did not build: {native_io.build_error}")
+    print(f"build: native splat library {native_io.library_path()} "
+          f"({time.perf_counter() - t0:.2f} s with the kernels' build)")
     if _build.build_seconds is None:
         print(f"build: reused {_build.library_path()} ({load_s:.2f} s to load)")
     else:
@@ -1035,8 +1318,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
-        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train = (get_config(host) for _ in range(6))
-    for c in (cfg3, cfg3_opt, cfg3_k5):
+        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train, cfg161 = (
+            get_config(host) for _ in range(7))
+    for c in (cfg3, cfg3_opt, cfg3_k5, cfg161):
         c.model.concat_before_block_num = 3
     cfg3_k5.gpu.dense_block_strip = "on"
     for c in (cfg_opt, cfg3_opt):
@@ -1189,7 +1473,15 @@ def main() -> int:
                                                 path_counts)
     torch.cuda.empty_cache()
 
-    # 13. time -----------------------------------------------------------------
+    # 13. raw records: preprocessing in the step -------------------------------
+    raw_record = _raw_record(train_state, cfg_train, device, path_counts)
+    torch.cuda.empty_cache()
+
+    # 14. DenseNet-161 at 1280x1920, batch 1: the open kernel-width gap ------
+    engine161 = _serve_densenet161(cfg161, device, rng, path_counts)
+    torch.cuda.empty_cache()
+
+    # 15. time -----------------------------------------------------------------
     tag = f"[{card}]"
     for batch in (1, 8, 32, 256):
         rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
@@ -1225,7 +1517,12 @@ def main() -> int:
                    f"K5 path b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
     _print_profile(tag, lambda: engine3_opt.forward(rgb, lidar), full_ms["opt-in"],
                    f"opt-in (K6) b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
-    del rgb, lidar
+    ms161, _ = _median_ms(lambda: engine161.forward(rgb, lidar), iters=10)
+    print(f"{tag} engine forward densenet161 b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid fusion "
+          f"before block 3; K1 only, the plain blocks and head where JAX runs K2 x4 "
+          f"and K3 x1): median {ms161:.4f} ms, "
+          f"{1e3 / ms161:.2f} frames/s (10 iterations)")
+    del rgb, lidar, engine161
     torch.cuda.empty_cache()
 
     k1 = {}
@@ -1385,6 +1682,7 @@ def main() -> int:
     del x, folded, packed, x_lo, raw, consts, weights
     torch.cuda.empty_cache()
     _time_train(tag, train_state, train_step, eval_step, gen, device)
+    _time_raw(tag, train_state, train_step, raw_record, cfg_train)
 
     launches = {name: sum(c[name] for c in path_counts) for name in worst}
     print(json.dumps({"kernels": [

@@ -31,9 +31,13 @@ a hand-written CUDA kernel (the plain version on a CPU tensor):
   planes of more than ``HEAD_KERNEL_MIN_PIXELS`` pixels.
 
 The strip, K4 and K6 gates are JAX's own decisions, its TPU cost models
-included, kept only so that both packages run those kernels on the same
-shapes; they say nothing about the card, and a kernel with no JAX gate to
-match needs no such model.
+included, kept so that both packages run those kernels on the same shapes;
+a kernel with no JAX gate to match needs no such model. The strip, K4 and
+head gates also require their CUDA kernels' own limits (growth, K, c_mid,
+classes). An architecture past them runs the plain loop and head, chosen by
+shape, where JAX runs its kernels: DenseNet-161 (growth 48, head c_mid 96)
+is such a gap, open kernel work in ``ROADMAP.md`` section 2. Each gate takes
+``kernel_limits=False`` to give JAX's decision alone.
 
 With the default config, at the 128x192 working resolution only K1
 engages; at 1280x1920 batch 1 the blocks 1 and 2 of both streams (K2) and
@@ -71,6 +75,7 @@ from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompu
 from ..ops.dense_block_strip import eligible as strip_eligible
 from ..ops.dense_block_strip import pack_layer_weights
 from ..ops.fused import concat_bn_relu_conv1x1, fold_bn, fuse_operands
+from ..ops.phase_head import MAX_CLASSES, MAX_MID, MAX_SOURCE_BF16
 from ..ops.phase_head import kernel_weights as phase_head_weights
 from ..ops.phase_head import phase_head
 from ..ops.stem_pool import eligible as stem_pool_eligible
@@ -328,12 +333,12 @@ class DenseBlock(nn.Module):
             self._folded = (_fold_key(tensors), folded, pack_layer_weights(folded))
         return self._folded[1:]
 
-    def _strip_eligible(self, x) -> bool:
+    def _strip_eligible(self, x, kernel_limits=True) -> bool:
         """JAX's ``DenseBlock._strip_eligible`` with the card in the TPU's
         place: eval, ``strip`` not ``off``, no dropout, a plane of at least
         ``STRIP_MIN_PIXELS`` pixels, and JAX's strip gate for the kernel
         ``strip`` picks (the recompute kernel's for ``on``, else the
-        carry kernel's)."""
+        carry kernel's); with ``kernel_limits``, the kernels' own too."""
         layers = list(self.children())
         if (self.strip == "off" or self.training
                 or any(layer.drop_rate > 0 for layer in layers)
@@ -343,11 +348,12 @@ class DenseBlock(nn.Module):
         return strip_eligible(
             x.shape[0], x.shape[2], x.shape[3], x.shape[1], growth, len(layers),
             layers[0].conv1.out_channels // growth, x.element_size(),
-            carry=self.strip != "on")
+            carry=self.strip != "on", kernel_limits=kernel_limits)
 
-    def _k4_eligible(self, x) -> bool:
+    def _k4_eligible(self, x, kernel_limits=True) -> bool:
         """Eval, impl ``pallas``, no dropout, and JAX's sample-group rule:
-        the whole block as K4 (never in train mode)."""
+        the whole block as K4 (never in train mode); with ``kernel_limits``,
+        the kernel's own too."""
         layers = list(self.children())
         if (self.impl != "pallas" or self.training
                 or any(layer.drop_rate > 0 for layer in layers)):
@@ -355,7 +361,8 @@ class DenseBlock(nn.Module):
         growth = layers[0].conv2.out_channels
         return dense_block_eligible(
             len(layers), x.shape[1], growth, layers[0].conv1.out_channels // growth,
-            x.shape[2], x.shape[3], dtype_bytes=x.element_size(), batch=x.shape[0])
+            x.shape[2], x.shape[3], dtype_bytes=x.element_size(), batch=x.shape[0],
+            kernel_limits=kernel_limits)
 
 
 class Transition(nn.Module):
@@ -620,9 +627,21 @@ class Head(nn.Module):
             self._k3_weights = (x_lo.dtype, _fold_key((w0, w1)), weights)
         return self._k3_weights[2]
 
-    def _kernel_eligible(self, x_lo, raw) -> bool:
+    def _kernel_eligible(self, x_lo, raw, kernel_limits=True) -> bool:
+        """JAX's gate (eval, batch 1, a plane of more than
+        ``HEAD_KERNEL_MIN_PIXELS``) and, with ``kernel_limits``, the kernel's
+        own limits: ``c_mid <= MAX_MID``, at most ``MAX_CLASSES`` classes and,
+        in bf16, ``c_up + 4 rc <= MAX_SOURCE_BF16``. A head past them runs the
+        plain head, by shape, where JAX runs its kernel (DenseNet-161's c_mid
+        96: open kernel work)."""
         h, w = raw.shape[-2:]
-        return (not self.training and raw.shape[0] == 1 and h * w > HEAD_KERNEL_MIN_PIXELS
+        within = not kernel_limits or (
+            self.refine0.out_channels <= MAX_MID
+            and self.refine1.out_channels <= MAX_CLASSES
+            and (x_lo.dtype != torch.bfloat16
+                 or self.up_channels + 4 * raw.shape[1] <= MAX_SOURCE_BF16))
+        return (within and not self.training and raw.shape[0] == 1
+                and h * w > HEAD_KERNEL_MIN_PIXELS
                 and (h, w) == (2 * x_lo.shape[-2], 2 * x_lo.shape[-1]))
 
 

@@ -18,8 +18,10 @@ cores with the weights of :func:`.dense_block_strip.pack_layer_weights`.
 * :func:`pick_group` and :func:`eligible` are JAX's gate, kept as they are
   (the TPU's VMEM budget, its 128-lane alignment and the dtype's bytes), so
   that the port runs K4 on exactly the blocks where the JAX model runs its
-  kernel on a TPU. The CUDA kernel itself takes any block shape; this gate
-  is a choice of where to use it, not a limit of it.
+  kernel on a TPU; :func:`eligible` adds the kernel's own limits on growth
+  and K (:func:`.dense_block_strip.within_limits`). A block past them runs
+  the plain loop, by shape, where JAX runs its kernel (DenseNet-161's growth
+  48): a gap in the port's layer body, open in ``ROADMAP.md`` section 2.
 * :func:`block_plan` mirrors the kernel's launch plan: its tile, its
   clusters and how the bf16 body deals a tile over its warps. The C entry
   ``dmm_dense_block_plan`` reports the plan the kernel makes, and
@@ -32,7 +34,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .dense_block_strip import MAX_GROWTH, dense_block_strip_reference, run_block_kernel
+from .dense_block_strip import (MAX_GROWTH, dense_block_strip_reference, run_block_kernel,
+                                within_limits)
 from .fused import LaunchCount, fold_bn
 
 K4_LAUNCHES = LaunchCount()
@@ -175,10 +178,14 @@ def pick_group(batch, h, w, dtype_bytes=2, *, num_layers, c0, growth, bn_size):
     return None
 
 
-def eligible(num_layers, c0, growth, bn_size, h, w, dtype_bytes=2, batch=1):
-    """Whether the block runs as K4: some sample group works."""
-    return pick_group(batch, h, w, dtype_bytes, num_layers=num_layers,
-                      c0=c0, growth=growth, bn_size=bn_size) is not None
+def eligible(num_layers, c0, growth, bn_size, h, w, dtype_bytes=2, batch=1,
+             kernel_limits=True):
+    """Whether the block runs as K4: some sample group works (JAX's
+    decision) and, with ``kernel_limits`` (the port's), the kernel takes its
+    growth and K (:func:`.dense_block_strip.within_limits`)."""
+    return ((not kernel_limits or within_limits(growth, bn_size))
+            and pick_group(batch, h, w, dtype_bytes, num_layers=num_layers,
+                           c0=c0, growth=growth, bn_size=bn_size) is not None)
 
 
 def dense_block(x, folded, packed=None):

@@ -25,8 +25,13 @@ For each layer ``l`` (``width = c0 + l * G``), with BN folded:
 * :func:`pick_rs_carry`, :func:`pick_rs` and :func:`eligible` are JAX's gate
   of its two strip kernels, kept as they are (the TPU's VMEM budget, its
   16-column tiling and the dtype's bytes) so that the port runs K2 and K5 on
-  exactly the blocks where the JAX model runs its strip kernels. They say
-  nothing about the card; the CUDA kernels take any block shape.
+  exactly the blocks where the JAX model runs its strip kernels, and
+  :func:`eligible` adds the CUDA kernels' own limits (``growth <=
+  MAX_GROWTH``, ``K <= MAX_BOTTLENECK``). A block past them runs the plain
+  loop, by shape. That is a gap, not a match: JAX runs its strip kernels on
+  DenseNet-161's blocks 1 and 2 (growth 48, K 192) at 1280x1920, and the
+  port's layer body does not take that width yet (open kernel work,
+  ``ROADMAP.md`` section 2).
 
 For a CUDA tensor the wrappers launch their kernel (or raise); for a CPU
 tensor they run the plain version. All take ``x`` as ``(B, H, W, c0)`` NHWC
@@ -163,12 +168,22 @@ def pick_rs(h, num_layers, w, c0, growth, k, dtype_bytes=2):
     return None
 
 
-def eligible(batch, h, w, c0, growth, num_layers, bn_size, dtype_bytes=2, carry=False):
+def within_limits(growth, bn_size):
+    """Whether the layer bodies of K2, K4 and K5 take the block: ``growth <=
+    MAX_GROWTH`` and ``K = bn_size * growth <= MAX_BOTTLENECK``."""
+    return growth <= MAX_GROWTH and bn_size * growth <= MAX_BOTTLENECK
+
+
+def eligible(batch, h, w, c0, growth, num_layers, bn_size, dtype_bytes=2, carry=False,
+             kernel_limits=True):
     """JAX's gate of its strip kernels: batch 1, ``c0`` and ``growth``
     multiples of 8, ``w`` a multiple of 16 (bf16) or 8, and a strip height
-    from :func:`pick_rs_carry` (``carry``, K2) or :func:`pick_rs` (K5)."""
+    from :func:`pick_rs_carry` (``carry``, K2) or :func:`pick_rs` (K5); with
+    ``kernel_limits`` (the port's decision) also the kernels' own limits
+    (:func:`within_limits`), without it JAX's decision alone."""
     picker = pick_rs_carry if carry else pick_rs
     return (batch == 1 and c0 % 8 == 0 and growth % 8 == 0
+            and (not kernel_limits or within_limits(growth, bn_size))
             and w % (16 if dtype_bytes == 2 else 8) == 0
             and picker(h, num_layers, w, c0, growth, bn_size * growth,
                        dtype_bytes) is not None)

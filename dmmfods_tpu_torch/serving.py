@@ -67,8 +67,11 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, rgb: torch.Tensor, lidar: torch.Tensor) -> torch.Tensor:
         """One device batch: NHWC tensors on the engine's device -> heat maps
-        on the device (f32 sigmoid with ``decode``, else the logits). Returns
+        on the device (f32 sigmoid with ``decode``, else the logits), from the
+        module in eval mode whatever mode a train step left it in. Returns
         once the work is queued on the device, not when it is done."""
+        if self._module.training:
+            self._module.eval()
         logits = self._module(rgb, None if self._single_stream else lidar)
         with self._count_lock:
             self._device_batches += 1

@@ -18,9 +18,13 @@ range (``train_step/forward``, ``/loss``, ``/backward``, ``/metrics``; the
 optimizer's own is ``Optimizer.step#Adam.step``), so that a profile can
 attribute device time to it.
 
-Not ported yet: the raw-record steps (``make_train_step_raw`` / ``_ht``,
-``make_eval_step_ht`` / ``_raw``), which need the device-side
-preprocessing, and the mesh, which has no meaning on one card.
+The raw-record steps take label boxes, and LiDAR points or a LiDAR image
+splatted on the host, in place of dense maps, and preprocess on the device
+inside the step (``ops/preprocess.py``, under ``train_step/preprocess``):
+``make_train_step_raw`` / ``make_eval_step_raw`` splat the points and
+rasterize the boxes, ``make_train_step_ht`` / ``make_eval_step_ht``
+rasterize the boxes only. Not ported: the mesh, which has no meaning on one
+card.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from . import losses, metrics
+from .ops import preprocess as pp
 from .optim import Adam
 
 
@@ -148,6 +153,77 @@ def make_eval_step(module, config, *, loss_fn: Optional[Callable] = None):
         return step_metrics
 
     return step
+
+
+def _make_heatmap_rasterizer(full_height, full_width):
+    """``rasterize(image, boxes) -> heat maps``: the boxes ``(B, M, 5)``,
+    in ``full_height`` x ``full_width`` pixels, rasterized straight onto the
+    image's ``(h, w)`` grid (``rasterize_heatmaps_direct``, pool
+    ``full_height // h``), ``(B, h, w, 3)`` f32."""
+    def rasterize(image, boxes):
+        out_h, out_w = image.shape[1], image.shape[2]
+        return pp.rasterize_heatmaps_direct(boxes, out_h, out_w, full_height // out_h)
+
+    return rasterize
+
+
+def _points_step(base_step, full_height, full_width, splat_mode):
+    """``base_step`` on raw records: ``step(state, image, points, num_valid,
+    boxes)``, the points splatted (``lidar_points_to_model_input`` in
+    ``splat_mode``) and the boxes rasterized on the device in the step."""
+    rasterize = _make_heatmap_rasterizer(full_height, full_width)
+
+    def step(state, image, points, num_valid, boxes):
+        with record_function("train_step/preprocess"):
+            lidar = pp.lidar_points_to_model_input(points, num_valid, full_height, full_width,
+                                                   mode=splat_mode)
+            ht_map = rasterize(image, boxes)
+        return base_step(state, image, lidar, ht_map)
+
+    return step
+
+
+def _boxes_step(base_step, full_height, full_width):
+    """``base_step`` on raw records splatted on the host: ``step(state,
+    image, lidar, boxes)``, the boxes rasterized on the device in the step."""
+    rasterize = _make_heatmap_rasterizer(full_height, full_width)
+
+    def step(state, image, lidar, boxes):
+        with record_function("train_step/preprocess"):
+            ht_map = rasterize(image, boxes)
+        return base_step(state, image, lidar, ht_map)
+
+    return step
+
+
+def make_train_step_raw(module, optimizer, config, *, full_height=1280, full_width=1920,
+                        splat_mode="nearest_pooled"):
+    """The train step on raw records: ``step(state, image, points, num_valid,
+    boxes) -> (state, metrics)``. The LiDAR splat (``splat_mode`` of
+    ``lidar_points_to_model_input``) and the heat-map rasterization run on
+    the device inside the step, then :func:`make_train_step`'s step."""
+    return _points_step(make_train_step(module, optimizer, config), full_height, full_width,
+                        splat_mode)
+
+
+def make_train_step_ht(module, optimizer, config, *, full_height=1280, full_width=1920):
+    """The train step on raw records whose LiDAR was splatted on the host
+    (``data/host_preprocess.py``): ``step(state, image, lidar, boxes) ->
+    (state, metrics)``, the heat maps rasterized on the device in the step."""
+    return _boxes_step(make_train_step(module, optimizer, config), full_height, full_width)
+
+
+def make_eval_step_ht(module, config, *, full_height=1280, full_width=1920):
+    """Eval twin of :func:`make_train_step_ht`: ``step(state, image, lidar,
+    boxes) -> metrics``."""
+    return _boxes_step(make_eval_step(module, config), full_height, full_width)
+
+
+def make_eval_step_raw(module, config, *, full_height=1280, full_width=1920,
+                       splat_mode="nearest_pooled"):
+    """Eval twin of :func:`make_train_step_raw`: ``step(state, image, points,
+    num_valid, boxes) -> metrics``."""
+    return _points_step(make_eval_step(module, config), full_height, full_width, splat_mode)
 
 
 def make_forward(module, config):

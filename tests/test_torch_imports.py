@@ -2,7 +2,8 @@
 fresh interpreter, since this test process has both loaded already
 (``conftest.py``): import every module of ``dmmfods_tpu_torch`` and
 ``chip_smoke``, build a config, run a tiny forward, train step and eval step
-on the CPU, and look at ``sys.modules``."""
+on the CPU, make a raw-record batch (the host splat) and take a host-splat
+raw-record step on it, and look at ``sys.modules``."""
 
 import subprocess
 import sys
@@ -38,6 +39,12 @@ state, metrics = trainer.make_train_step(module, optimizer, cfg)(state, *batch)
 assert torch.isfinite(metrics["loss"])
 assert sorted(trainer.make_eval_step(module, cfg)(state, *batch)) == sorted(
     list(metrics) + ["ap_per_class", "ap_bin_counts"])
+from dmmfods_tpu_torch.data.synthetic import make_raw_batch
+image, lidar, boxes = (torch.from_numpy(x) for x in make_raw_batch(2, 32, 48, splat="host"))
+assert image.shape == (2, 32, 48, 3) and lidar.shape == (2, 32, 48, 1), lidar.shape
+state, metrics = trainer.make_train_step_ht(module, optimizer, cfg, full_height=320,
+                                            full_width=480)(state, image, lidar, boxes)
+assert torch.isfinite(metrics["loss"])
 assert "jax" not in sys.modules and "flax" not in sys.modules, sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
 assert not [m for m in sys.modules if m.split(".")[0] == "dmmfods_tpu"], sorted(
@@ -54,5 +61,6 @@ def test_port_imports_no_jax():
     for name in ("config", "ops.fused", "ops._build", "ops.dense_block",
                  "ops.dense_block_strip", "ops.phase_head", "ops.stem_pool",
                  "models.dense_unet_lidar", "models.weights", "serving", "losses",
-                 "metrics", "optim", "trainer"):
+                 "metrics", "optim", "trainer", "ops.preprocess", "data.native_io",
+                 "data.host_preprocess", "data.synthetic"):
         assert "dmmfods_tpu_torch." + name in imported, proc.stdout

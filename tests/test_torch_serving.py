@@ -98,6 +98,34 @@ def test_logits_without_decode(bundle):
     np.testing.assert_allclose(engine.run(rgb, lidar), want, atol=1e-5)
 
 
+def test_serves_in_eval_mode_after_a_train_step(tmp_path):
+    """A train step leaves the module in train mode; the engine still serves
+    the eval forward: its logits equal ``make_forward``'s bit for bit, and
+    the run changes no buffer of the module (no batch statistics)."""
+    from dmmfods_tpu_torch import trainer
+
+    cfg = _tiny_config(tmp_path)
+    spec = ModelSpec.from_config(cfg)
+    module = DenseUNetLidar(spec, generator=torch.Generator().manual_seed(5)).to(
+        memory_format=torch.channels_last)
+    bundle = ModelBundle(module=module, config=cfg, spec=spec)
+    engine = InferenceEngine(bundle, buckets=(2,), decode=False)
+    rng = np.random.default_rng(6)
+    rgb, lidar = _frames(rng, 2)
+    heat = rng.uniform(0, 1, (2, H, W, 3)).astype(np.float32)
+    optimizer = trainer.make_optimizer(cfg, module.parameters())
+    step = trainer.make_train_step(module, optimizer, cfg)
+    step(trainer.TrainState(module, optimizer), torch.from_numpy(rgb),
+         torch.from_numpy(lidar), torch.from_numpy(heat))
+    assert module.training
+    buffers = {name: b.clone() for name, b in module.named_buffers()}
+    served = engine.run(rgb, lidar)
+    for name, b in module.named_buffers():
+        assert torch.equal(b, buffers[name]), name
+    want = trainer.make_forward(module, cfg)(torch.from_numpy(rgb), torch.from_numpy(lidar))
+    assert np.array_equal(served, want.numpy())
+
+
 @pytest.mark.slow
 def test_matches_the_jax_engine(tmp_path):
     import jax
