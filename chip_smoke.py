@@ -11,10 +11,11 @@ exit code:
 1. Device: requires CUDA and prints the card's name and power limit.
 2. Build: compiles the CUDA kernels from ``dmmfods_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and prints the build time and ptxas's
-   registers and spills of each kernel, with the dynamic shared memory of
-   the tensor-core kernels (the bf16 bodies of K1, K2, K3, K4, K5 and K6,
-   K1's at each N slice, K6's at each channel count 1-8); fails if those
-   spill.
+   registers and spills of each kernel instantiation, with the dynamic
+   shared memory of the tensor-core kernels (the bf16 bodies of K1, K2, K3,
+   K4, K5 and K6, K1's at each N slice, K6's at each channel count 1-8, and
+   K2's, K4's and K5's in each (K, G) layout of the layer bodies, (128, 32)
+   and (192, 48), K4's at each tile); fails if any instantiation spills.
 3. K1 (the fused concat+BN+ReLU+1x1 kernel) against its plain PyTorch
    version: in bf16 on operands folded and packed beforehand
    (``fuse_operands``) at the 128x192 serving shape (16x24 pixels, 128/128
@@ -24,23 +25,30 @@ exit code:
    slices) and at 12/20 -> 24 (not multiples of 8: the CUDA-core body, which
    the C entry picks by shape); in bf16 folded per call at b8; in f32 (the
    CUDA-core body) at b8, b256 and a ragged shape.
-4. K2 (the dense block) against its plain version at the 1280x1920 block
-   shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12 layers) and at two
-   ragged shapes (G 8, K 32; G 12, K 48) in bf16, with its bf16 wave plan,
-   and at a ragged shape in f32; K5 (the dense block as independent strips
-   that recompute their halo) at the same two block shapes in bf16, also
-   against K2 bit for bit (both run one layer body at one tile), and in f32
-   and bf16 (there against K2 bit for bit too) at a ragged shape whose last
-   strip is short, at a plane that is a single strip and at a block deeper
-   than its strips; K3 (the head) at the
+4. K2 (the dense block) against its plain version at DenseNet-121's
+   1280x1920 block shapes (320x480, c0 64, 6 layers; 160x240, c0 128, 12
+   layers) and at two ragged shapes (G 8, K 32; G 12, K 48) in bf16, with
+   its bf16 wave plan, and at a ragged shape in f32; at DenseNet-161's
+   (growth 48, K 192: the layer bodies' wide layout; c0 96 and 192) in bf16
+   and f32; and at three wide ragged shapes (G 40, K 160; G 48 on a ragged
+   plane; 12 layers) in both; K5 (the dense block as independent strips
+   that recompute their halo) at the same four block shapes, against K2 bit
+   for bit in bf16 (both run one layer body at one tile), and in f32 and
+   bf16 (there against K2 bit for bit too) at a ragged shape whose last
+   strip is short, at a plane that is a single strip, at a block deeper
+   than its strips and at the wide ragged shapes; growth 64 (K 256)
+   refused by each wrapper and each C entry; K3 (the head) at the
    1280x1920 shape and at two ragged shapes (c_mid 20 and 3 classes, 64 and
    8) in bf16 and at a ragged shape in f32;
    K4 (the whole-block kernel) at the
    four DenseNet-121 block shapes of 128x192 in bf16, at each batch of the
    opt-in path that runs the block as K4 (``K4_PATH_BATCHES``) and at b256,
-   after holding its launch plan (tile, cluster, warp split, shared memory)
-   from ``dmm_dense_block_plan`` against the Python mirror ``block_plan``,
-   at a ragged shape in bf16 and f32 and at a small-plane shape in f32; K6
+   at DenseNet-161's blocks 1 and 2 there at b1, b32 and b256 in bf16 and
+   b8 in f32, after holding its launch plan (tile, cluster, warp split,
+   shared memory) from ``dmm_dense_block_plan`` against the Python mirror
+   ``block_plan`` in each layout, at a ragged shape in bf16 and f32, at a
+   small-plane shape in f32, and at the wide ragged and small-plane shapes
+   in both; K6
    (the fused stem + pool0) at 1280x1920 and at 128x192, each with 3 and 1
    channels, and at two ragged shapes (4 and 8 channels) in bf16, on
    weights packed beforehand (``pack_stem_weights``), and at a ragged shape
@@ -91,15 +99,18 @@ exit code:
    ``make_eval_step_ht`` and ``make_eval_step_raw`` each with K1 once and no
    other kernel and finite metrics, and ``make_eval_step_ht`` equal bit for
    bit to ``make_eval_step`` on the rasterized maps.
-14. DenseNet-161 at 1280x1920 batch 1 with mid fusion before block 3: one
-   synchronous request, the heat maps against the same weights in f32. This
-   phase pins an open gap, not a ported state: JAX's gates run K2 on four
-   blocks and K3 once here, but growth 48 (K 192) and head c_mid 96 are past
-   what the port's K2-K5 and K3 take, so the port runs K1 once and its plain
-   blocks and head. The phase counts JAX's decisions on the blocks and head
-   the request ran (the gates with ``kernel_limits=False``) beside the
-   port's, and fails if either moves: a kernel widened to these shapes must
-   change this phase.
+14. DenseNet-161 (growth 48: K2, K4 and K5 in the layer bodies' wide
+   layout) through ``InferenceEngine``: at 1280x1920 batch 1 with mid
+   fusion before block 3, one synchronous request on the default path (K1
+   once, K2 four times, no K3: its c_mid 96 is past K3's limit) and one
+   with ``dense_block_strip = "on"`` (K1 once, K5 four times); at 128x192
+   with ``dense_block_impl = "pallas"``, one request at b1 and one at b32
+   (K1 once, K4 three times: stream 1's blocks 1-2 and stream 2's block 1,
+   the blocks JAX's rule takes). Each against the same weights in f32. On
+   the default path JAX's gates (``kernel_limits=False``) are counted
+   beside the port's on the blocks and head the request ran: K2 4 / K3 1
+   against K2 4 / K3 0. The phase fails if either moves: K3's width is open
+   kernel work (ROADMAP.md section 2).
 15. Time, by CUDA events: the engine's forward with the opt-ins in turns
    with the default config at b1/b8/b32/b256 at 128x192 and at b1 at
    1280x1920, and the K5 path's forward in turns with the default one, then
@@ -127,7 +138,11 @@ exit code:
    its conv work counted by ``FlopCounterMode`` over the bf16 peak as its
    bound), the eval step at b32, and a ``torch.profiler`` breakdown of a
    b32 train step by phase (forward, loss, backward, optimizer, metrics)
-   and kernel class. DenseNet-161's 1280x1920 forward. The raw-record b32
+   and kernel class. DenseNet-161's 1280x1920 forward on the K2 path, the
+   K5 path and with its plain blocks (``dense_block_strip = "off"``), in
+   turns, each with a ``torch.profiler`` breakdown; K2 and K5 at its two
+   block shapes and K4 at its two 128x192 blocks at b256, each against its
+   plain version and the model's own loop on the same block. The raw-record b32
    steps (``ht``, ``raw``) in turns with the dense step on the same frames,
    each profiled by phase with ``train_step/preprocess`` apart; the
    rasterizer and the device splat alone (by events and as device time
@@ -163,8 +178,11 @@ BOUND_BF16 = 1e-2
 # 3.2e-3 on an H100 at 128x192 at the seed below.
 BOUND_SERVED_VS_F32 = 2e-2
 # The 1280x1920 path's kernel shapes: K2 and K5 per dense block (h, w, c0,
-# layers; growth 32, K 128), K3 (hh, hw, c_up, raw channels, c_mid, classes).
+# layers), DenseNet-121's (growth 32, K 128: the layer bodies' narrow
+# layout) and DenseNet-161's (growth 48, K 192: the wide layout), K3 (hh,
+# hw, c_up, raw channels, c_mid, classes).
 K2_BLOCKS = {"block1": (320, 480, 64, 6), "block2": (160, 240, 128, 12)}
+K2_BLOCKS_161 = {"block1": (320, 480, 96, 6), "block2": (160, 240, 192, 12)}
 K3_FULL = (640, 960, 128, 4, 64, 3)
 # K4 per DenseNet-121 block at 128x192 (h, w, c0, layers), checked at the
 # batches the opt-in path gives each block (the kernel picks its cluster of
@@ -176,6 +194,11 @@ K4_BLOCKS = {"block1": (32, 48, 64, 6), "block2": (16, 24, 128, 12),
              "block3": (8, 12, 256, 24), "block4": (4, 6, 512, 16)}
 K4_PATH_BATCHES = {"block1": (1, 8, 32), "block2": (1, 8, 32), "block3": (8, 32),
                    "block4": (32,)}
+# K4 on DenseNet-161's 128x192 blocks 1 and 2 (h, w, c0, layers), which
+# JAX's sample-group rule takes at every batch (blocks 3 and 4 at none),
+# checked at the opt-in path's batches here and at b256, timed at b256
+K4_BLOCKS_161 = {"block1": (32, 48, 96, 6), "block2": (16, 24, 192, 12)}
+K4_BATCHES_161 = (1, 32)
 K6_TIMED = {"": (FULL_HEIGHT, FULL_WIDTH, 3), "_c1": (FULL_HEIGHT, FULL_WIDTH, 1),
             "_128x192": (HEIGHT, WIDTH, 3)}
 # K5's shapes besides the path's (name, h, w, c0, layers, growth, K): its
@@ -195,16 +218,23 @@ PLAIN_BLOCK = "cuDNN bf16 convs, BN in f32 over each concat prefix"
 # c_up, raw channels, c_mid, classes): K and G, c_mid and classes below the
 # tensor-core tiles' multiples
 K2_RAGGED_BF16 = [("ragged", 37, 53, 24, 3, 8, 32), ("ragged 2", 21, 35, 40, 4, 12, 48)]
+# shapes in the wide layout besides DenseNet-161's (name, h, w, c0, layers,
+# growth, K), for K2, K5 and K4 (at batch 3) in bf16 and f32: G 40 and K
+# 160 padded to (192, 48), G 48 on a ragged plane, and a block deeper than
+# K5's strips
+WIDE_RAGGED = [("wide ragged", 37, 53, 24, 3, 40, 160), ("wide ragged 2", 21, 35, 48, 4, 48, 192),
+               ("wide deeper than its strips", 16, 40, 16, 12, 48, 192)]
 K3_RAGGED_BF16 = [(13, 21, 40, 3, 20, 3), (13, 21, 40, 3, 64, 8)]
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
                 "dense_block_recompute_kernel", "concat_bn_relu_conv1x1_mma_kernel",
                 "dense_layer_mma_kernel", "phase_head_mma_kernel", "dense_block_mma_kernel",
                 "dense_block_recompute_mma_kernel", "stem_pool_mma_kernel")
-# the bf16 bodies on the tensor cores, which must not spill
-TENSOR_CORE_KERNELS = ("concat_bn_relu_conv1x1_mma_kernel", "dense_layer_mma_kernel",
-                       "phase_head_mma_kernel", "dense_block_mma_kernel",
-                       "dense_block_recompute_mma_kernel", "stem_pool_mma_kernel")
+# the kernels templated on the layer bodies' (K, G) layout, after their
+# tile where they have one
+LAYOUT_KERNELS = ("dense_layer_kernel", "dense_layer_mma_kernel", "dense_block_kernel",
+                  "dense_block_mma_kernel", "dense_block_recompute_kernel",
+                  "dense_block_recompute_mma_kernel")
 # K1's shapes on the main path (batch, h, w, Ca, Cb, Cout): the 128x192
 # buckets' fuse before block 2 and the 1280x1920 fuse before block 3
 K1_PATH = {"b1": (1, 16, 24, 128, 128, 128), "b8": (8, 16, 24, 128, 128, 128),
@@ -250,9 +280,19 @@ RAW_STEPS = 3
 BOUND_SPLAT = 1e-4
 # DenseNet-161 (growth 48, c_mid 96) at 1280x1920 b1 with mid fusion before
 # block 3: JAX's gates run K2 on blocks 1 and 2 of both streams and K3 once;
-# the port's K2-K5 and K3 do not take those widths yet (open kernel work)
+# the port's run the same K2, in the layer bodies' wide layout, and not K3,
+# whose c_mid 96 is past its limit (open kernel work)
 NUM_PARAMS_DENSENET161_CONFIG3 = 85_911_080
+NUM_PARAMS_DENSENET161 = 83_331_176    # mid fusion before block 2, 128x192
 DENSENET161_JAX_KERNELS = dict(K2=4, K3=1)
+DENSENET161_PORT_KERNELS = dict(K2=4, K3=0)
+# its launches per device batch: at 1280x1920 on the default path and with
+# dense_block_strip = "on", and at 128x192 (b1 and b32) with
+# dense_block_impl = "pallas": K4 on stream 1's blocks 1-2 and stream 2's
+# block 1
+DENSENET161_LAUNCHES = {"default": dict(K1=1, K2=4, K3=0, K4=0, K5=0, K6=0),
+                        "K5 path": dict(K1=1, K2=0, K3=0, K4=0, K5=4, K6=0),
+                        "K4 path": dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=0)}
 
 
 def _card_line() -> str:
@@ -367,17 +407,18 @@ def _check_equal(name, other, shape, out, ref):
         raise AssertionError(f"{name} differs from {other} at {shape}: {diff}")
 
 
-def _check_block_plan(lib, batch, h, w, sms, label):
+def _check_block_plan(lib, batch, h, w, sms, label, growth=32, k=128):
     """K4's launch plan from ``dmm_dense_block_plan`` against the Python
     mirror ``block_plan``; prints it and raises if the two differ."""
     import ctypes
 
     from dmmfods_tpu_torch.ops.dense_block import block_plan
 
-    plan = block_plan(batch, h, w, sms)
+    plan = block_plan(batch, h, w, sms, growth, k)
     got = (ctypes.c_int * len(plan.c_fields()))()
-    rc = lib.dmm_dense_block_plan(batch, h, w, sms, ctypes.cast(got, ctypes.c_void_p))
-    print(f"K4 plan {label} ({batch}, {h}, {w}): {plan.tile[0]}x{plan.tile[1]} tiles, "
+    rc = lib.dmm_dense_block_plan(batch, h, w, sms, growth, k,
+                                  ctypes.cast(got, ctypes.c_void_p))
+    print(f"K4 plan {label} ({batch}, {h}, {w}) G={growth} K={k}: {plan.tile[0]}x{plan.tile[1]} tiles, "
           f"{plan.tiles} an image, clusters of {plan.cluster}; bf16 body: "
           f"{plan.m16_1x1} m16 tiles of halo, {plan.m16_3x3} of outputs, {plan.units} "
           f"units, at most {plan.warp_units} a warp (warps' (m16 tile, n8 pair): "
@@ -579,26 +620,29 @@ def _serve(engine, requests, sync_request):
 
 
 def _ptxas_report(build_log, lib):
-    """ptxas's registers, spills and static shared memory per kernel, from
-    the build log, with the tensor-core kernels' dynamic shared memory from
-    the library (K4's from ``dense_block.mma_smem`` of its tile, which
-    ``dmm_dense_block_plan`` confirms); raises, after the whole report, if
-    one of those spills."""
+    """ptxas's registers, spills and static shared memory per kernel
+    instantiation, from the build log, with the tensor-core kernels' dynamic
+    shared memory from the library (K4's from ``dense_block.mma_smem`` of its
+    tile and layout, which ``dmm_dense_block_plan`` confirms); raises, after
+    the whole report, if any instantiation spills."""
     import re
 
     from dmmfods_tpu_torch.ops.dense_block import mma_smem
 
-    name, kernel, spills, spilled = "?", "?", (0, 0), []
+    name, kernel, args, spills, spilled = "?", "?", [], (0, 0), []
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = next((n for n in KERNEL_NAMES if n in line), "?")
-            tile = re.search(r"Li(\d+)ELi(\d+)E", line)
-            chans = re.search(r"stem_pool_mma_kernelILi(\d+)E", line)
-            slice_n = re.search(r"concat_bn_relu_conv1x1_mma_kernelILi(\d+)E", line)
+            args = [int(n) for n in re.findall(r"Li(\d+)E", line)]
+            tile = layout = None
+            if name in LAYOUT_KERNELS:
+                tile, layout = (args[:2], args[2:4]) if len(args) == 4 else (None, args[:2])
             kernel = (f"{name}<{'bf16' if 'nv_bfloat16' in line else 'f32'}"
-                      + (f", {tile[1]}x{tile[2]}" if tile else "")
-                      + (f", C={chans[1]}" if chans else "")
-                      + (f", N slice {slice_n[1]}" if slice_n else "") + ">")
+                      + (f", {tile[0]}x{tile[1]}" if tile else "")
+                      + (f", K {layout[0]} G {layout[1]}" if layout else "")
+                      + (f", C={args[0]}" if name == "stem_pool_mma_kernel" else "")
+                      + (f", N slice {args[0]}" if name == "concat_bn_relu_conv1x1_mma_kernel"
+                         else "") + ">")
         elif "spill stores" in line:
             spills = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
         elif "registers" in line:
@@ -606,23 +650,23 @@ def _ptxas_report(build_log, lib):
             if name == "phase_head_mma_kernel":
                 dynamic = f", {lib.dmm_phase_head_mma_smem()} bytes dynamic smem"
             elif name in ("dense_layer_mma_kernel", "dense_block_recompute_mma_kernel"):
-                dynamic = f", {lib.dmm_dense_layer_mma_smem()} bytes dynamic smem"
-            elif name == "dense_block_mma_kernel" and tile:
-                dynamic = f", {mma_smem(int(tile[1]), int(tile[2]))} bytes dynamic smem"
-            elif name == "stem_pool_mma_kernel" and chans:
-                dynamic = f", {lib.dmm_stem_pool_mma_smem(int(chans[1]))} bytes dynamic smem"
-            elif name == "concat_bn_relu_conv1x1_mma_kernel" and slice_n:
+                dynamic = f", {lib.dmm_dense_layer_mma_smem(*layout)} bytes dynamic smem"
+            elif name == "dense_block_mma_kernel":
+                dynamic = f", {mma_smem(*tile, *layout)} bytes dynamic smem"
+            elif name == "stem_pool_mma_kernel":
+                dynamic = f", {lib.dmm_stem_pool_mma_smem(args[0])} bytes dynamic smem"
+            elif name == "concat_bn_relu_conv1x1_mma_kernel":
                 widths = [s[3:] for s in (*K1_PATH.values(), *K1_EXTRA_BF16)
-                          if lib.dmm_concat_bn_relu_conv1x1_tile_n(*s[3:]) == int(slice_n[1])]
+                          if lib.dmm_concat_bn_relu_conv1x1_tile_n(*s[3:]) == args[0]]
                 dynamic = "".join(
                     f", {lib.dmm_concat_bn_relu_conv1x1_mma_smem(*w)} bytes dynamic smem at "
                     f"{w[0]}+{w[1]}->{w[2]}" for w in dict.fromkeys(widths))
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; spill stores "
                   f"{spills[0]} B, loads {spills[1]} B{dynamic}")
-            if name in TENSOR_CORE_KERNELS and any(spills):
+            if any(spills):
                 spilled.append(f"{kernel} {spills[0]} B stored, {spills[1]} B loaded")
     if spilled:
-        raise AssertionError("tensor-core kernels spill: " + "; ".join(spilled))
+        raise AssertionError("kernels spill: " + "; ".join(spilled))
 
 
 # torch.profiler's kernel names -> the classes of the device-time breakdown
@@ -1060,48 +1104,81 @@ def _gate_decisions(module, run):
     return tuple(counts)
 
 
-def _serve_densenet161(cfg, device, rng, path_counts):
-    """Phase 14: DenseNet-161 (growth 48, head c_mid 96) served at 1280x1920
-    b1 with mid fusion before block 3: one synchronous request, its heat
-    maps finite and held against the same weights in f32. JAX's gates take
-    K2 on four blocks and K3 once here; the port's kernels do not take these
-    widths, so its device batch runs K1 once and no other kernel. Both are
-    counted and pinned: the gap is open kernel work. Returns the engine."""
+def _serve_densenet161(cfgs, device, rng, path_counts):
+    """Phase 14: DenseNet-161 (growth 48, head c_mid 96) through
+    ``InferenceEngine`` on the paths that run the layer bodies' wide layout:
+    at 1280x1920 b1 with mid fusion before block 3, one synchronous request
+    on the default path (K1 once, K2 on blocks 1 and 2 of both streams) and
+    one with ``dense_block_strip = "on"`` (K5 in K2's place); at 128x192
+    with ``dense_block_impl = "pallas"``, one request at b1 and one at b32
+    (K4 on JAX's blocks). Each request's heat maps are finite in [0, 1] and
+    held against the same weights in f32 on the default path. On the
+    default path JAX's gates (``kernel_limits=False``) are counted beside
+    the port's: both take K2 four times, and JAX's K3 once, which the port
+    does not (c_mid 96 is past K3's limit: open kernel work, ROADMAP.md
+    section 2); the phase fails if either moves. Returns the 1280x1920
+    engines of both paths."""
     import numpy as np
 
     from dmmfods_tpu_torch.models.dense_unet_lidar import densenet161_u_lidar
     from dmmfods_tpu_torch.serving import InferenceEngine
 
-    bundle = densenet161_u_lidar(config=cfg, device=device, seed=SEED)
-    if bundle.num_params != NUM_PARAMS_DENSENET161_CONFIG3:
-        raise AssertionError(f"{bundle.num_params} params, want "
-                             f"{NUM_PARAMS_DENSENET161_CONFIG3}")
-    print(f"model: densenet161_u_lidar, {bundle.num_params} params, {bundle.spec.fusion} "
-          f"fusion before block {bundle.spec.concat_before_block_num}, {bundle.spec.dtype}, "
-          f"{FULL_HEIGHT}x{FULL_WIDTH}, default config")
-    engine = InferenceEngine(bundle, buckets=(1,), height=FULL_HEIGHT, width=FULL_WIDTH)
+    engines = {}
     rgb = rng.uniform(0, 1, (1, FULL_HEIGHT, FULL_WIDTH, 3)).astype(np.float32)
     lidar = rng.uniform(0, 1, (1, FULL_HEIGHT, FULL_WIDTH, 1)).astype(np.float32)
-    served = []
-    _reset_counts()
-    t0 = time.perf_counter()
-    jax_gates, port_gates = _gate_decisions(bundle.module,
-                                            lambda: served.append(engine.run(rgb, lidar)))
-    path_counts.append(_counts())
-    out = served[0]
-    _check_heat_maps([(rgb, lidar)], [out], FULL_HEIGHT, FULL_WIDTH)
-    print(f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH}: one synchronous request in "
-          f"{time.perf_counter() - t0:.2f} s wall (the first call); ", end="")
-    _per_batch(path_counts[-1], engine.device_batches, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
-    print(f"densenet161 gap (open kernel work): JAX's gates run {jax_gates} here, the port "
-          f"{port_gates}: growth 48 (K 192) is past K2/K4/K5's layer body (growth <= 32, K "
-          f"<= 128) and c_mid 96 past K3's (<= 64), so the plain blocks and head run")
-    if jax_gates != DENSENET161_JAX_KERNELS or port_gates != dict(K2=0, K3=0):
-        raise AssertionError(f"DenseNet-161's gate decisions moved: JAX {jax_gates} (want "
-                             f"{DENSENET161_JAX_KERNELS}), port {port_gates} (want none); "
-                             f"update this phase and ROADMAP.md section 2")
-    _served_vs_f32(bundle, rgb, lidar, out, device, f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH}")
-    return engine
+    for path in ("default", "K5 path"):
+        bundle = densenet161_u_lidar(config=cfgs[path], device=device, seed=SEED)
+        if bundle.num_params != NUM_PARAMS_DENSENET161_CONFIG3:
+            raise AssertionError(f"{bundle.num_params} params, want "
+                                 f"{NUM_PARAMS_DENSENET161_CONFIG3}")
+        print(f"model: densenet161_u_lidar, {bundle.num_params} params, {bundle.spec.fusion} "
+              f"fusion before block {bundle.spec.concat_before_block_num}, "
+              f"{bundle.spec.dtype}, {FULL_HEIGHT}x{FULL_WIDTH}, dense_block_strip "
+              f"{bundle.spec.dense_block_strip!r}")
+        engine = InferenceEngine(bundle, buckets=(1,), height=FULL_HEIGHT, width=FULL_WIDTH)
+        served = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        gates = _gate_decisions(bundle.module, lambda: served.append(engine.run(rgb, lidar)))
+        path_counts.append(_counts())
+        _check_heat_maps([(rgb, lidar)], served, FULL_HEIGHT, FULL_WIDTH)
+        print(f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH} {path}: one synchronous request in "
+              f"{time.perf_counter() - t0:.2f} s wall (the first call); ", end="")
+        _per_batch(path_counts[-1], engine.device_batches, DENSENET161_LAUNCHES[path])
+        if path == "default":
+            jax_gates, port_gates = gates
+            print(f"densenet161 gates: JAX's run {jax_gates} here, the port's {port_gates}: "
+                  f"growth 48 (K 192) runs in the layer bodies' wide layout; c_mid 96 is "
+                  f"past K3's limit (<= 64), so the plain head runs (open kernel work)")
+            if jax_gates != DENSENET161_JAX_KERNELS or port_gates != DENSENET161_PORT_KERNELS:
+                raise AssertionError(
+                    f"DenseNet-161's gate decisions moved: JAX {jax_gates} (want "
+                    f"{DENSENET161_JAX_KERNELS}), port {port_gates} (want "
+                    f"{DENSENET161_PORT_KERNELS}); update this phase and ROADMAP.md section 2")
+        _served_vs_f32(bundle, rgb, lidar, served[0], device,
+                       f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH} {path}")
+        engines[path] = engine
+    bundle = densenet161_u_lidar(config=cfgs["K4 path"], device=device, seed=SEED)
+    if bundle.num_params != NUM_PARAMS_DENSENET161:
+        raise AssertionError(f"{bundle.num_params} params, want {NUM_PARAMS_DENSENET161}")
+    print(f"model: densenet161_u_lidar, {bundle.num_params} params, {bundle.spec.fusion} "
+          f"fusion before block {bundle.spec.concat_before_block_num}, {HEIGHT}x{WIDTH}, "
+          f"dense_block_impl {bundle.spec.dense_block_impl!r}")
+    engine = InferenceEngine(bundle, buckets=K4_BATCHES_161)
+    for batch in K4_BATCHES_161:
+        rgb = rng.uniform(0, 1, (batch, HEIGHT, WIDTH, 3)).astype(np.float32)
+        lidar = rng.uniform(0, 1, (batch, HEIGHT, WIDTH, 1)).astype(np.float32)
+        before = engine.device_batches
+        _reset_counts()
+        out = engine.run(rgb, lidar)
+        path_counts.append(_counts())
+        _check_heat_maps([(rgb, lidar)], [out], HEIGHT, WIDTH)
+        print(f"densenet161 {HEIGHT}x{WIDTH} b{batch} K4 path: ", end="")
+        _per_batch(path_counts[-1], engine.device_batches - before,
+                   DENSENET161_LAUNCHES["K4 path"])
+        _served_vs_f32(bundle, rgb, lidar, out, device,
+                       f"densenet161 {HEIGHT}x{WIDTH} b{batch} K4 path")
+    return engines
 
 
 def _time_raw(tag, state, dense_step, raw, cfg):
@@ -1177,7 +1254,8 @@ def main() -> int:
     from dmmfods_tpu_torch.config import get_config
     from dmmfods_tpu_torch.data import native_io
     from dmmfods_tpu_torch.models.dense_unet_lidar import (DenseBlock, Encoder, ModelSpec,
-                                                           densenet121_u_lidar)
+                                                           densenet121_u_lidar,
+                                                           densenet161_u_lidar)
     from dmmfods_tpu_torch.ops import (_build, dense_block, dense_block_strip, fused,
                                        phase_head, stem_pool)
     from dmmfods_tpu_torch.serving import InferenceEngine
@@ -1240,34 +1318,42 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     k2_cases = [(name, h, w, c0, layers, 32, 128, torch.bfloat16)
                 for name, (h, w, c0, layers) in K2_BLOCKS.items()]
+    k2_cases += [(f"densenet161 {name}", h, w, c0, layers, 48, 192, dt)
+                 for dt in (torch.bfloat16, torch.float32)
+                 for name, (h, w, c0, layers) in K2_BLOCKS_161.items()]
     k2_cases += [(*case, torch.bfloat16) for case in K2_RAGGED_BF16]
     k2_cases.append(("ragged", 37, 53, 24, 3, 8, 32, torch.float32))
+    k2_cases += [(*case, dt) for dt in (torch.bfloat16, torch.float32) for case in WIDE_RAGGED]
     for name, h, w, c0, layers, growth, k, dt in k2_cases:
         x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, dt, device)
         out = dense_block_strip.dense_block_strip(x, folded)
         torch.cuda.synchronize()
         ref = dense_block_strip.dense_block_strip_reference(x.float(), folded)
-        plan = ""
+        layout = dense_block_strip.layout(growth, k)
+        plan = f", layout K {layout[0]} G {layout[1]}"
         if dt == torch.bfloat16:
-            tiles, waves = dense_block_strip.layer_plan(h, w, sms)
-            plan = (f", {tiles} tiles a layer, {waves:.2f} waves of "
-                    f"{sms * dense_block_strip.LAYER_BLOCKS_PER_SM} slots")
+            tiles, waves = dense_block_strip.layer_plan(h, w, sms, growth, k)
+            slots = sms * dense_block_strip.BLOCKS_PER_SM[layout][dt]
+            plan += f", {tiles} tiles a layer, {waves:.2f} waves of {slots} slots"
         worst["K2"] = max(worst["K2"], _check(
             "K2", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}{plan}", out, ref))
-        if name in K2_BLOCKS:      # K5 on the same inputs, against both
+        if name in K2_BLOCKS or name.startswith("densenet161"):   # K5 on the same inputs
             out5 = dense_block_strip.dense_block_strip_recompute(x, folded)
             torch.cuda.synchronize()
             worst["K5"] = max(worst["K5"], _check(
                 "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}", out5, ref))
-            _check_equal("K5", "K2", name, out5, out)
+            if dt == torch.bfloat16:
+                _check_equal("K5", "K2", name, out5, out)
     for (name, h, w, c0, layers, growth, k), dt in (
-            (case, dt) for case in K5_EXTRA for dt in (torch.float32, torch.bfloat16)):
+            (case, dt) for case in K5_EXTRA + WIDE_RAGGED
+            for dt in (torch.float32, torch.bfloat16)):
         x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, dt, device)
         out = dense_block_strip.dense_block_strip_recompute(x, folded)
         torch.cuda.synchronize()
         ref = dense_block_strip.dense_block_strip_reference(x.float(), folded)
+        layout = dense_block_strip.layout(growth, k)
         rows, strips, blocks = dense_block_strip.plan_strips(
-            h, w, layers, sms, dense_block_strip.BLOCKS_PER_SM[dt])
+            h, w, layers, sms, dense_block_strip.BLOCKS_PER_SM[layout][dt])
         worst["K5"] = max(worst["K5"], _check(
             "K5", f"{name} {h}x{w} c0={c0} L={layers} G={growth} K={k}, {strips} "
             f"strips of {rows} rows, {blocks} blocks", out, ref))
@@ -1275,6 +1361,23 @@ def main() -> int:
             out2 = dense_block_strip.dense_block_strip(x, folded)
             torch.cuda.synchronize()
             _check_equal("K5", "K2", name, out, out2)
+    # growth 64 (K 256) is past the widest layout: each wrapper raises on
+    # the card, and each C entry refuses it without launching
+    x, folded = _k2_inputs(gen, 16, 16, 16, 2, 64, 256, torch.bfloat16, device)
+    for run in (dense_block_strip.dense_block_strip,
+                dense_block_strip.dense_block_strip_recompute, dense_block.dense_block):
+        try:
+            run(x, folded)
+        except ValueError:
+            continue
+        raise AssertionError(f"{run.__name__} took growth 64")
+    rcs = (lib.dmm_dense_block_strip(*[None] * 8, 1, 16, 16, 16, 2, 64, 256, 1, None),
+           lib.dmm_dense_block(*[None] * 8, 1, 16, 16, 16, 2, 64, 256, 1, None),
+           lib.dmm_dense_block_recompute(*[None] * 8, 1, 16, 16, 16, 2, 64, 256, 1, None,
+                                         None, None, 8, 2))
+    if any(rc == 0 for rc in rcs):
+        raise AssertionError(f"a C entry took growth 64: {rcs}")
+    print(f"growth 64 (K 256): the three wrappers raise, the C entries return {rcs}")
     k3_cases = [("1280x1920", K3_FULL, torch.bfloat16)]
     k3_cases += [("ragged", shape, torch.bfloat16) for shape in K3_RAGGED_BF16]
     k3_cases.append(("ragged", (13, 21, 40, 3, 20, 3), torch.float32))
@@ -1288,12 +1391,23 @@ def main() -> int:
             f"c_mid={shape[4]} classes={shape[5]}", out, ref))
     k4_cases = [(f"{name} b{batch}", batch, *K4_BLOCKS[name], 32, 128, torch.bfloat16)
                 for name, batches in K4_PATH_BATCHES.items() for batch in batches + (256,)]
-    for name, batch, h, w, *_ in k4_cases:
-        _check_block_plan(lib, batch, h, w, sms, name)
+    k4_cases += [(f"densenet161 {name} b{batch}", batch, *shape, 48, 192, torch.bfloat16)
+                 for name, shape in K4_BLOCKS_161.items()
+                 for batch in K4_BATCHES_161 + (256,)]
+    for name, batch, h, w, c0, layers, growth, k, _ in k4_cases:
+        _check_block_plan(lib, batch, h, w, sms, name, growth, k)
     _check_block_plan(lib, 6, 37, 53, sms, "ragged")
+    _check_block_plan(lib, 3, 37, 53, sms, "wide ragged", 40, 160)
+    _check_block_plan(lib, 40, 4, 6, sms, "wide small planes", 48, 192)
     k4_cases.append(("ragged", 6, 37, 53, 24, 3, 8, 32, torch.bfloat16))
     k4_cases.append(("ragged", 6, 37, 53, 24, 3, 8, 32, torch.float32))
     k4_cases.append(("small planes", 40, 4, 6, 48, 4, 16, 64, torch.float32))
+    k4_cases += [(f"densenet161 {name} b8", 8, *shape, 48, 192, torch.float32)
+                 for name, shape in K4_BLOCKS_161.items()]
+    k4_cases += [(name, 3, *shape, dt) for name, *shape in WIDE_RAGGED
+                 for dt in (torch.bfloat16, torch.float32)]
+    k4_cases += [("wide small planes", 40, 4, 6, 48, 4, 48, 192, dt)
+                 for dt in (torch.bfloat16, torch.float32)]
     for name, batch, h, w, c0, layers, growth, k, dt in k4_cases:
         x, folded = _k2_inputs(gen, h, w, c0, layers, growth, k, dt, device, batch=batch)
         out = dense_block.dense_block(x, folded)
@@ -1318,11 +1432,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
-        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train, cfg161 = (
-            get_config(host) for _ in range(7))
-    for c in (cfg3, cfg3_opt, cfg3_k5, cfg161):
+        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train = (get_config(host) for _ in range(6))
+        cfg161 = {path: get_config(host) for path in (*DENSENET161_LAUNCHES, "plain blocks")}
+    for c in (cfg3, cfg3_opt, cfg3_k5, cfg161["default"], cfg161["K5 path"],
+              cfg161["plain blocks"]):
         c.model.concat_before_block_num = 3
     cfg3_k5.gpu.dense_block_strip = "on"
+    cfg161["K5 path"].gpu.dense_block_strip = "on"
+    cfg161["K4 path"].gpu.dense_block_impl = "pallas"
+    cfg161["plain blocks"].gpu.dense_block_strip = "off"    # timed beside the kernels
     for c in (cfg_opt, cfg3_opt):
         c.gpu.dense_block_impl = "pallas"
         c.gpu.stem_pool_strip = "on"
@@ -1477,8 +1595,8 @@ def main() -> int:
     raw_record = _raw_record(train_state, cfg_train, device, path_counts)
     torch.cuda.empty_cache()
 
-    # 14. DenseNet-161 at 1280x1920, batch 1: the open kernel-width gap ------
-    engine161 = _serve_densenet161(cfg161, device, rng, path_counts)
+    # 14. DenseNet-161: K2 and K5 at 1280x1920, K4 at 128x192 ----------------
+    engines161 = _serve_densenet161(cfg161, device, rng, path_counts)
     torch.cuda.empty_cache()
 
     # 15. time -----------------------------------------------------------------
@@ -1517,12 +1635,21 @@ def main() -> int:
                    f"K5 path b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
     _print_profile(tag, lambda: engine3_opt.forward(rgb, lidar), full_ms["opt-in"],
                    f"opt-in (K6) b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
-    ms161, _ = _median_ms(lambda: engine161.forward(rgb, lidar), iters=10)
+    # DenseNet-161's forward on the K2 path, the K5 path and with the plain
+    # blocks the kernels replace (dense_block_strip = "off": K1 only), in turns
+    engines161["plain blocks"] = InferenceEngine(
+        densenet161_u_lidar(config=cfg161["plain blocks"], device=device, seed=SEED),
+        buckets=(1,), height=FULL_HEIGHT, width=FULL_WIDTH)
+    fwd161 = dict(zip(engines161, _in_turns(
+        *(lambda eng=eng: eng.forward(rgb, lidar) for eng in engines161.values()), iters=8)))
     print(f"{tag} engine forward densenet161 b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid fusion "
-          f"before block 3; K1 only, the plain blocks and head where JAX runs K2 x4 "
-          f"and K3 x1): median {ms161:.4f} ms, "
-          f"{1e3 / ms161:.2f} frames/s (10 iterations)")
-    del rgb, lidar, engine161
+          f"before block 3; the plain head where JAX runs K3): " + "; ".join(
+              f"{label} median {ms:.4f} ms, {1e3 / ms:.2f} frames/s" for label, ms in
+              fwd161.items()) + " (16 iterations each, in turns)")
+    for label, eng in engines161.items():
+        _print_profile(tag, lambda: eng.forward(rgb, lidar), fwd161[label],
+                       f"densenet161 {label} b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} forward")
+    del rgb, lidar, engines161
     torch.cuda.empty_cache()
 
     k1 = {}
@@ -1582,7 +1709,7 @@ def main() -> int:
             lambda: dense_block_strip.dense_block_strip_reference(x, folded),
             lambda: dense_block_strip.dense_block_strip(x, folded, packed), iters=10)
         rows5, strips5, blocks5 = dense_block_strip.plan_strips(
-            h, w, layers, sms, dense_block_strip.LAYER_BLOCKS_PER_SM)
+            h, w, layers, sms, dense_block_strip.BLOCKS_PER_SM[(128, 32)][torch.bfloat16])
         print(f"{tag} K5 {name} (1, {h}, {w}, {c0}) L={layers} bf16, weights packed "
               f"beforehand, {strips5} strips of "
               f"{rows5} rows, {blocks5} blocks, work "
@@ -1590,6 +1717,33 @@ def main() -> int:
               f"{k5_ms[name][0]:.4f} ms; plain "
               f"version {k5_ms[name][1]:.4f} ms; K2 {k5_ms[name][2]:.4f} ms (20 "
               f"iterations each, in turns); bound {block_bound[name][0]:.4f} ms")
+    # K2 and K5 at DenseNet-161's blocks (the wide layout), against the plain
+    # version and the model's own loop on the same block, which they replace
+    k161 = {}
+    for name, (h, w, c0, layers) in K2_BLOCKS_161.items():
+        x, folded = _k2_inputs(gen, h, w, c0, layers, 48, 192, torch.bfloat16, device)
+        packed = dense_block_strip.pack_layer_weights(folded)
+        block = DenseBlock(layers, c0, 4, 48, 0.0, strip="off").to(device).eval()
+        x_nchw = x.permute(0, 3, 1, 2)          # channels_last, as the model holds it
+        with torch.inference_mode():
+            times = _in_turns(
+                lambda: dense_block_strip.dense_block_strip(x, folded, packed),
+                lambda: dense_block_strip.dense_block_strip_recompute(x, folded, packed),
+                lambda: dense_block_strip.dense_block_strip_reference(x, folded),
+                lambda: block(x_nchw), lambda: dense_block_strip.pack_layer_weights(folded),
+                iters=5)
+        k161[name] = dict(zip(("k2", "k5", "plain", "loop", "pack"), times),
+                          bound=_block_bound(x, folded))
+        rows5, strips5, blocks5 = dense_block_strip.plan_strips(
+            h, w, layers, sms, dense_block_strip.BLOCKS_PER_SM[(192, 48)][torch.bfloat16])
+        t = k161[name]
+        print(f"{tag} K2 / K5 densenet161 {name} (1, {h}, {w}, {c0}) L={layers} G=48 K=192 "
+              f"bf16, weights packed beforehand: K2 median {t['k2']:.4f} ms, K5 "
+              f"{t['k5']:.4f} ms ({strips5} strips of {rows5} rows, {blocks5} blocks); plain "
+              f"version ({PLAIN_BLOCK}) {t['plain']:.4f} ms; the model's plain loop (cuDNN "
+              f"bf16 convs, BN in bf16) {t['loop']:.4f} ms; the packing {t['pack']:.4f} ms "
+              f"(10 iterations each, in turns); bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})")
     x_lo, raw, consts = _k3_inputs(gen, *K3_FULL, torch.bfloat16, device)
 
     def fold():
@@ -1651,6 +1805,26 @@ def main() -> int:
               f"{k4_ms[name][1]:.4f} ms; the model's plain loop (cuDNN bf16 convs, BN "
               f"in bf16) {k4_ms[name][2]:.4f} ms (10 iterations each, in turns); bound "
               f"{k4_bound[name][0]:.4f} ms ({k4_bound[name][1]})")
+    k4_161 = {}
+    for name, (h, w, c0, layers) in K4_BLOCKS_161.items():
+        x, folded = _k2_inputs(gen, h, w, c0, layers, 48, 192, torch.bfloat16, device,
+                               batch=256)
+        packed = dense_block_strip.pack_layer_weights(folded)
+        block = DenseBlock(layers, c0, 4, 48, 0.0).to(device).eval()
+        x_nchw = x.permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            times = _in_turns(
+                lambda: dense_block.dense_block(x, folded, packed),
+                lambda: dense_block.dense_block_reference(x, folded),
+                lambda: block(x_nchw), iters=5)
+        k4_161[name] = dict(zip(("ms", "plain", "loop"), times), bound=_block_bound(x, folded))
+        t = k4_161[name]
+        tile = dense_block.block_plan(256, h, w, sms, 48, 192).tile
+        print(f"{tag} K4 densenet161 {name} (256, {h}, {w}, {c0}) L={layers} G=48 K=192 bf16, "
+              f"{tile[0]}x{tile[1]} tiles, weights packed beforehand: median {t['ms']:.4f} "
+              f"ms; plain version ({PLAIN_BLOCK}) {t['plain']:.4f} ms; the model's plain "
+              f"loop (cuDNN bf16 convs, BN in bf16) {t['loop']:.4f} ms (10 iterations each, "
+              f"in turns); bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
     k6 = {}
     for key, (h, w, c) in K6_TIMED.items():
         x, w7, gamma, beta = _k6_inputs(gen, 1, h, w, c, 64, torch.bfloat16, device)
@@ -1706,7 +1880,13 @@ def main() -> int:
          "bound_ms": block_bound["block1"][0], "bound_by": block_bound["block1"][1],
          "library_ms": LIBRARY_MS, "pack_ms": k2_ms["block1"][2],
          "ms_block2": k2_ms["block2"][0], "plain_ms_block2": k2_ms["block2"][1],
-         "bound_ms_block2": block_bound["block2"][0], "pack_ms_block2": k2_ms["block2"][2]},
+         "bound_ms_block2": block_bound["block2"][0], "pack_ms_block2": k2_ms["block2"][2],
+         **{f"{key}_161_{name}": (t["bound"][0] if key == "bound_ms" else t[field])
+            for name, t in k161.items()
+            for key, field in (("ms", "k2"), ("plain_ms", "plain"), ("model_loop_ms", "loop"),
+                               ("pack_ms", "pack"), ("bound_ms", None))},
+         "forward_161_ms": fwd161["default"],
+         "forward_161_plain_blocks_ms": fwd161["plain blocks"]},
         {"name": "phase_head", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/phase_head.cu",
          "replaces": "dmmfods_tpu/ops/pallas/phase_head.py:246",
@@ -1723,7 +1903,11 @@ def main() -> int:
          **{f"{key}_{name}": k4_ms[name][i] for name in ("block2", "block3", "block4")
             for i, key in enumerate(("ms", "plain_ms", "model_loop_ms"))},
          **{f"bound_ms_{name}": k4_bound[name][0]
-            for name in ("block2", "block3", "block4")}},
+            for name in ("block2", "block3", "block4")},
+         **{f"{key}_161_{name}": (t["bound"][0] if key == "bound_ms" else t[field])
+            for name, t in k4_161.items()
+            for key, field in (("ms", "ms"), ("plain_ms", "plain"), ("model_loop_ms", "loop"),
+                               ("bound_ms", None))}},
         {"name": "stem_pool", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/stem_pool.cu",
          "replaces": "dmmfods_tpu/ops/pallas/stem_pool.py:252",
@@ -1738,7 +1922,12 @@ def main() -> int:
          "library_ms": LIBRARY_MS, "k2_ms": k5_ms["block1"][2],
          "ms_block2": k5_ms["block2"][0], "plain_ms_block2": k5_ms["block2"][1],
          "bound_ms_block2": block_bound["block2"][0], "k2_ms_block2": k5_ms["block2"][2],
-         "path_ms": k5_path_ms, "default_path_ms": default_path_ms},
+         "path_ms": k5_path_ms, "default_path_ms": default_path_ms,
+         **{f"{key}_161_{name}": (t["bound"][0] if key == "bound_ms" else t[field])
+            for name, t in k161.items()
+            for key, field in (("ms", "k5"), ("plain_ms", "plain"), ("model_loop_ms", "loop"),
+                               ("k2_ms", "k2"), ("bound_ms", None))},
+         "path_161_ms": fwd161["K5 path"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,10 @@
 // Operands (NHWC): x (B, H, W, c0) T; out (B, H, W, cmax) T, the block's
 // output buffer; g1, b1 (L, cmax) float, zero beyond each width; g2, b2 (L,
 // K) float; w1 and w3 in f32 as (L, cmax, K) and (L, 3, 3, K, G), in bf16
-// packed by ops/dense_block_strip.py::pack_layer_weights as (L, cp, 128) and
-// (L, 9, 128, 32), cp = cmax rounded up to 32, zeros in the padding.
+// packed by ops/dense_block_strip.py::pack_layer_weights as (L, cp, KP) and
+// (L, 9, KP, GP), cp = cmax rounded up to 32, zeros in the padding, (KP, GP)
+// the layout of (K, G): (128, 32) or (192, 48). Both kernels are templates
+// on the tile and the layout; the C entry picks both by shape.
 //
 // Why the TPU design does not carry over. A TPU program holds the whole
 // (cmax, group * h * w) buffer of a group of images in VMEM, up to 20 MB. A
@@ -51,16 +53,19 @@
 // 8x12 -> 8x12 (4 and 1 tiles, 9 m16 tiles), 4x6 -> 4x6 (1 tile, 3 m16
 // tiles): the DenseNet-121 blocks at 128x192, with no ragged tile. The bf16
 // body deals each tile's 3x3 over its 8 warps as (m16 tile, n8 pair) units
-// (dense_layer_mma.cuh): 16 at 8x16 (two a warp), 12 at 8x12, 4 at 4x6.
+// (dense_layer_mma.cuh): at G 32 16 at 8x16 (two a warp), 12 at 8x12, 4 at
+// 4x6; at G 48 (DenseNet-161) 24 at 8x16 (three a warp), 18 at 8x12, 6 at
+// 4x6 (one a warp).
 // ops/dense_block.py::block_plan mirrors this plan and dmm_dense_block_plan
 // reports the one this file makes.
 //
 // What bounds it on an H100: at b256 the four blocks do 26-261 GFLOP
 // (0.03-0.26 ms on the tensor cores) and must move 0.01-0.2 GB (at most
 // 0.06 ms): operations. The bf16 kernel takes 2.2 / 1.8 / 1.5 / 0.65 ms
-// there (at 700 W), the layer body's latency (dense_layer_mma.cuh). It
-// runs two 256-thread blocks an SM (97 KB of shared memory at 8x16, at most
-// 128 registers), so one block's staging runs under the other's products;
+// there (at 700 W), the layer body's latency (dense_layer_mma.cuh). At
+// (128, 32) it runs two 256-thread blocks an SM (97 KB of shared memory at
+// 8x16, at most 128 registers), so one block's staging runs under the
+// other's products (at (192, 48) one, but two at 4x6);
 // the planes of blocks 3 and 4, one tile an image, recompute the 1x1 on a
 // ring that lies wholly outside the image (140 halo pixels for 96 outputs
 // at 8x12, 48 for 24 at 4x6), and the 4x6 tile's 3x3 keeps half the warps
@@ -126,7 +131,7 @@ __device__ __forceinline__ ImageFrame<T> image_frame(T* out, int H, int W, int c
   return ImageFrame<T>{out + static_cast<int64_t>(blockIdx.y) * H * W * cmax, H, W, cmax};
 }
 
-template <int TH, int TW>
+template <int TH, int TW, int KMax, int GMax>
 __global__ void __launch_bounds__(kLayerThreads, 1)
 dense_block_kernel(const float* __restrict__ x, float* out, const float* __restrict__ g1,
                    const float* __restrict__ b1, const float* __restrict__ w1,
@@ -139,23 +144,24 @@ dense_block_kernel(const float* __restrict__ x, float* out, const float* __restr
       x, out, H, W, c0, L, G, [](int) {},
       [=](int l, int y0, int x0) {
         const int64_t cmax = c0 + L * G;
-        dense_layer_tile<TH, TW>(smem, image_frame(out, H, W, c0 + L * G), c0 + l * G, K, G,
-                                 y0, x0, g1 + l * cmax, b1 + l * cmax, w1 + l * cmax * K,
-                                 g2 + l * K, b2 + l * K, w3 + static_cast<int64_t>(l) * 9 * K * G);
+        dense_layer_tile<TH, TW, KMax, GMax>(
+            smem, image_frame(out, H, W, c0 + L * G), c0 + l * G, K, G, y0, x0,
+            g1 + l * cmax, b1 + l * cmax, w1 + l * cmax * K, g2 + l * K, b2 + l * K,
+            w3 + static_cast<int64_t>(l) * 9 * K * G);
       });
 }
 
 // The bf16 kernel keeps its frame and each layer's LayerArgs in shared
 // memory, written by thread 0 at the start of the layer (LayerArgs in
 // dense_layer_mma.cuh says why).
-template <int TH, int TW>
-__global__ void __launch_bounds__(kLayerThreads, 2)
+template <int TH, int TW, int KP, int GP>
+__global__ void __launch_bounds__(kLayerThreads, LayerMma<TH, TW, KP, GP>::kBlocksPerSm)
 dense_block_mma_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* out,
                        const float* __restrict__ g1, const float* __restrict__ b1,
                        const __nv_bfloat16* __restrict__ w1, const float* __restrict__ g2,
                        const float* __restrict__ b2, const __nv_bfloat16* __restrict__ w3,
                        int H, int W, int c0, int L, int G, int K) {
-  using P = LayerMma<TH, TW>;
+  using P = LayerMma<TH, TW, KP, GP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ ImageFrame<__nv_bfloat16> frame_s;
   __shared__ LayerArgs args_s;
@@ -173,7 +179,9 @@ dense_block_mma_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* out,
                           w1 + l * cp * P::kK, g2 + l * K, b2 + l * K,
                           w3 + static_cast<int64_t>(l) * 9 * P::kK * P::kG};
       },
-      [=](int, int y0, int x0) { dense_layer_mma<TH, TW>(smem, *frame, *args, y0, x0); });
+      [=](int, int y0, int x0) {
+        dense_layer_mma<TH, TW, KP, GP>(smem, *frame, *args, y0, x0);
+      });
 }
 
 int tiles_of(int H, int W, int TH, int TW) {
@@ -193,9 +201,9 @@ int cluster_size(int B, int tiles, int sms) {
 // The plane's tile, by index into (8x16, 8x12, 4x6): the least padded halo
 // work, the larger tile on a tie
 int pick_tile(int H, int W) {
-  const int c816 = tiles_of(H, W, 8, 16) * LayerMma<8, 16>::kNP;
-  const int c812 = tiles_of(H, W, 8, 12) * LayerMma<8, 12>::kNP;
-  const int c46 = tiles_of(H, W, 4, 6) * LayerMma<4, 6>::kNP;
+  const int c816 = tiles_of(H, W, 8, 16) * LayerMma<8, 16, 128, 32>::kNP;
+  const int c812 = tiles_of(H, W, 8, 12) * LayerMma<8, 12, 128, 32>::kNP;
+  const int c46 = tiles_of(H, W, 4, 6) * LayerMma<4, 6, 128, 32>::kNP;
   if (c816 <= c812 && c816 <= c46) return 0;
   return c812 <= c46 ? 1 : 2;
 }
@@ -230,29 +238,48 @@ int launch_clusters(void (*kernel)(KArgs...), size_t smem, int B, int tiles, cud
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TH, int TW>
+template <int TH, int TW, int KP, int GP>
 int launch(const void* x, void* out, const float* g1, const float* b1, const void* w1,
            const float* g2, const float* b2, const void* w3, int B, int H, int W, int c0,
            int L, int G, int K, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   const int tiles = tiles_of(H, W, TH, TW);
   if (dtype == 0) {
-    return launch_clusters(dense_block_kernel<TH, TW>, LayerTile<TH, TW>::kSmem, B, tiles, s,
+    return launch_clusters(dense_block_kernel<TH, TW, KP, GP>,
+                           LayerTile<TH, TW, KP, GP>::kSmem, B, tiles, s,
                            static_cast<const float*>(x), static_cast<float*>(out), g1, b1,
                            static_cast<const float*>(w1), g2, b2,
                            static_cast<const float*>(w3), H, W, c0, L, G, K);
   }
-  return launch_clusters(dense_block_mma_kernel<TH, TW>, LayerMma<TH, TW>::kSmem, B, tiles, s,
+  return launch_clusters(dense_block_mma_kernel<TH, TW, KP, GP>,
+                         LayerMma<TH, TW, KP, GP>::kSmem, B, tiles, s,
                          static_cast<const bf16*>(x), static_cast<bf16*>(out), g1, b1,
                          static_cast<const bf16*>(w1), g2, b2, static_cast<const bf16*>(w3),
                          H, W, c0, L, G, K);
 }
 
-// a tile's plan: (TH, TW, its 1x1's m16 tiles, its 3x3's, the 3x3's units,
-// the most a warp runs, the bf16 kernel's dynamic shared memory)
+// the tile's launch in the layout of (K, G)
 template <int TH, int TW>
+int launch_layout(const void* x, void* out, const float* g1, const float* b1, const void* w1,
+                  const float* g2, const float* b2, const void* w3, int B, int H, int W,
+                  int c0, int L, int G, int K, int dtype, cudaStream_t s) {
+  switch (layer_layout(K, G)) {
+    case 0:
+      return launch<TH, TW, 128, 32>(x, out, g1, b1, w1, g2, b2, w3, B, H, W, c0, L, G, K,
+                                     dtype, s);
+    case 1:
+      return launch<TH, TW, 192, 48>(x, out, g1, b1, w1, g2, b2, w3, B, H, W, c0, L, G, K,
+                                     dtype, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// a tile's plan in a layout: (TH, TW, its 1x1's m16 tiles, its 3x3's, the
+// 3x3's units, the most a warp runs, the bf16 kernel's dynamic shared memory)
+template <int TH, int TW, int KP, int GP>
 void tile_plan(int* plan) {
-  using P = LayerMma<TH, TW>;
+  using P = LayerMma<TH, TW, KP, GP>;
   plan[0] = TH;
   plan[1] = TW;
   plan[2] = P::kMT1;
@@ -262,19 +289,27 @@ void tile_plan(int* plan) {
   plan[6] = static_cast<int>(P::kSmem);
 }
 
+template <int TH, int TW>
+void tile_plan_layout(int layout, int* plan) {
+  if (layout == 0)
+    tile_plan<TH, TW, 128, 32>(plan);
+  else
+    tile_plan<TH, TW, 192, 48>(plan);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (w1 and w3 packed: see the top). Runs the
 // whole block, the copy of x into the buffer included, as one launch on
 // `stream`, without synchronising. Returns the first cudaError_t (0 on
-// success).
+// success; cudaErrorInvalidValue past K 192 or G 48).
 extern "C" int dmm_dense_block(const void* x, void* out, const void* g1, const void* b1,
                                const void* w1, const void* g2, const void* b2,
                                const void* w3, int B, int H, int W, int c0, int L,
                                int G, int K, int dtype, void* stream) {
   const int64_t cmax = static_cast<int64_t>(c0) + static_cast<int64_t>(L) * G;
-  if (B <= 0 || H <= 0 || W <= 0 || c0 <= 0 || L <= 0 || G <= 0 || G > kGMax ||
-      K <= 0 || K > kKMax || B > 65535 || (dtype != 0 && dtype != 1) ||
+  if (B <= 0 || H <= 0 || W <= 0 || c0 <= 0 || L <= 0 || G <= 0 || K <= 0 ||
+      layer_layout(K, G) < 0 || B > 65535 || (dtype != 0 && dtype != 1) ||
       static_cast<int64_t>(H) * W * cmax > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -285,29 +320,32 @@ extern "C" int dmm_dense_block(const void* x, void* out, const void* g1, const v
   const float* f_b2 = static_cast<const float*>(b2);
   switch (pick_tile(H, W)) {
     case 0:
-      return launch<8, 16>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G, K,
-                           dtype, s);
+      return launch_layout<8, 16>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G,
+                                  K, dtype, s);
     case 1:
-      return launch<8, 12>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G, K,
-                           dtype, s);
+      return launch_layout<8, 12>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G,
+                                  K, dtype, s);
     default:
-      return launch<4, 6>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G, K,
-                          dtype, s);
+      return launch_layout<4, 6>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G,
+                                 K, dtype, s);
   }
 }
 
-// The launch plan dmm_dense_block makes for a batch of B images of H x W on
-// a card of `sms` SMs, into plan[0..8]: the tile (TH, TW), its tiles an
-// image, the cluster's blocks, the tile's 1x1 and 3x3 m16 tiles, the 3x3's
-// units, the most of them a warp runs and the bf16 kernel's dynamic shared
-// memory. Returns 0, or cudaErrorInvalidValue.
-extern "C" int dmm_dense_block_plan(int B, int H, int W, int sms, int* plan) {
-  if (B <= 0 || H <= 0 || W <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// The launch plan dmm_dense_block makes for a batch of B images of H x W
+// with growth G and bottleneck K on a card of `sms` SMs, into plan[0..8]:
+// the tile (TH, TW), its tiles an image, the cluster's blocks, the tile's 1x1
+// and 3x3 m16 tiles, the 3x3's units, the most of them a warp runs and the
+// bf16 kernel's dynamic shared memory, in the layout of (K, G). Returns 0,
+// or cudaErrorInvalidValue.
+extern "C" int dmm_dense_block_plan(int B, int H, int W, int sms, int G, int K, int* plan) {
+  const int layout = layer_layout(K, G);
+  if (B <= 0 || H <= 0 || W <= 0 || sms <= 0 || G <= 0 || K <= 0 || layout < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   int tile[7];
   switch (pick_tile(H, W)) {
-    case 0: tile_plan<8, 16>(tile); break;
-    case 1: tile_plan<8, 12>(tile); break;
-    default: tile_plan<4, 6>(tile); break;
+    case 0: tile_plan_layout<8, 16>(layout, tile); break;
+    case 1: tile_plan_layout<8, 12>(layout, tile); break;
+    default: tile_plan_layout<4, 6>(layout, tile); break;
   }
   const int tiles = tiles_of(H, W, tile[0], tile[1]);
   plan[0] = tile[0];

@@ -18,8 +18,10 @@
 // block's output buffer; halo (strips, 2 L, W, cmax) T, scratch; arrive
 // (strips) uint32, scratch; g1, b1 (L, cmax) float, zero beyond each width;
 // g2, b2 (L, K) float; w1 and w3 as K2 takes them (f32 (L, cmax, K) and (L,
-// 3, 3, K, G); bf16 packed as (L, cp, 128) and (L, 9, 128, 32)). The caller
-// allocates both scratch buffers; this file allocates nothing.
+// 3, 3, K, G); bf16 packed as (L, cp, KP) and (L, 9, KP, GP) in the layout
+// (KP, GP) of (K, G): (128, 32) or (192, 48)). Both kernels are templates
+// on the layout, picked by shape in the C entry. The caller allocates both
+// scratch buffers; this file allocates nothing.
 //
 // What the TPU kernel does: each in-order grid step computes rs output rows
 // from a window of rs + 2 L input rows held in VMEM for all L layers; the
@@ -38,8 +40,8 @@
 // The design. The plane is cut into strips of `rows` output rows (the last
 // may be ragged); the caller picks rows (ops/dense_block_strip.py
 // plan_strips). One cooperative launch of `blocks` 256-thread blocks, at most
-// as many as the SMs hold (two an SM in bf16, one in f32), all resident at
-// once, which the launch checks first; strip s owns blocks [s * blocks / strips,
+// as many as the SMs hold (two an SM in bf16 at (128, 32), one at (192, 48)
+// and in f32), all resident at once, which the launch checks first; strip s owns blocks [s * blocks / strips,
 // (s + 1) * blocks / strips). A strip's blocks copy its window of x into
 // channels [0, c0), then run the layers: layer l computes the output rows
 // [r0 - e, r1 + e), e = L - 1 - l (clipped to the image), tile by tile
@@ -55,7 +57,8 @@
 // to 8 rows (JAX's whole-window schedule pays (rs + 2 L) / rs).
 //
 // What bounds it on an H100: as K2's, the layer body's latency
-// (csrc/dense_layer_mma.cuh), at two 256-thread blocks an SM in bf16; and
+// (csrc/dense_layer_mma.cuh), at two 256-thread blocks an SM in bf16 at
+// (128, 32) (one at (192, 48)); and
 // beside K2, the strips' recomputed rows (1.016x / 1.069x of the block's at
 // the two 1280x1920 blocks). It takes 1.06 / 1.20 ms there against K2's
 // 0.95 / 0.98 (at 700 W); its barriers cost at most 0.02 ms a call.
@@ -211,6 +214,7 @@ __device__ __forceinline__ void strip_schedule(const T* __restrict__ x, T* out, 
   }
 }
 
+template <int KMax, int GMax>
 __global__ void __launch_bounds__(kLayerThreads, 1)
 dense_block_recompute_kernel(const float* __restrict__ x, float* out, float* halo,
                              unsigned int* arrive, const float* __restrict__ g1,
@@ -225,17 +229,20 @@ dense_block_recompute_kernel(const float* __restrict__ x, float* out, float* hal
       x, out, halo, arrive, H, W, c0, L, G, rows, state, [](int) {},
       [=](const StripFrame<float>& frame, int l, int y0, int x0) {
         const int64_t cmax = c0 + L * G;
-        dense_layer_tile<kTH, kTW>(smem, frame, c0 + l * G, K, G, y0, x0, g1 + l * cmax,
-                                   b1 + l * cmax, w1 + l * cmax * K, g2 + l * K,
-                                   b2 + l * K, w3 + static_cast<int64_t>(l) * 9 * K * G);
+        dense_layer_tile<kTH, kTW, KMax, GMax>(
+            smem, frame, c0 + l * G, K, G, y0, x0, g1 + l * cmax, b1 + l * cmax,
+            w1 + l * cmax * K, g2 + l * K, b2 + l * K,
+            w3 + static_cast<int64_t>(l) * 9 * K * G);
       });
 }
 
-using LayerPlan = LayerMma<kTH, kTW>;
+template <int KP, int GP>
+using LayerPlan = LayerMma<kTH, kTW, KP, GP>;
 
 // The bf16 kernel keeps each layer's LayerArgs in shared memory beside the
 // strip's state, written by thread 0 at the start of the layer.
-__global__ void __launch_bounds__(kLayerThreads, 2)
+template <int KP, int GP>
+__global__ void __launch_bounds__(kLayerThreads, LayerPlan<KP, GP>::kBlocksPerSm)
 dense_block_recompute_mma_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* out,
                                  __nv_bfloat16* halo, unsigned int* arrive,
                                  const float* __restrict__ g1, const float* __restrict__ b1,
@@ -243,7 +250,7 @@ dense_block_recompute_mma_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloa
                                  const float* __restrict__ g2, const float* __restrict__ b2,
                                  const __nv_bfloat16* __restrict__ w3, int H, int W, int c0,
                                  int L, int G, int K, int rows) {
-  using P = LayerPlan;
+  using P = LayerPlan<KP, GP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ StripState<__nv_bfloat16> state;
   __shared__ LayerArgs args_s;
@@ -260,7 +267,7 @@ dense_block_recompute_mma_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloa
                           w3 + static_cast<int64_t>(l) * 9 * P::kK * P::kG};
       },
       [=](const StripFrame<__nv_bfloat16>& frame, int, int y0, int x0) {
-        dense_layer_mma<kTH, kTW>(smem, frame, *args, y0, x0);
+        dense_layer_mma<kTH, kTW, KP, GP>(smem, frame, *args, y0, x0);
       });
 }
 
@@ -299,6 +306,7 @@ int launch_cooperative(void (*kernel)(KArgs...), size_t smem, int blocks, int st
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int KP, int GP>
 int run_block(const void* x, void* out, const float* g1, const float* b1, const void* w1,
               const float* g2, const float* b2, const void* w3, int H, int W, int c0, int L,
               int G, int K, int dtype, void* halo, void* arrive, int rows, int blocks,
@@ -308,16 +316,16 @@ int run_block(const void* x, void* out, const float* g1, const float* b1, const 
   unsigned int* counts = static_cast<unsigned int*>(arrive);
   if (dtype == 0) {
     return launch_cooperative(
-        dense_block_recompute_kernel, LayerTile<kTH, kTW>::kSmem, blocks, strips, arrive, s,
-        static_cast<const float*>(x), static_cast<float*>(out), static_cast<float*>(halo),
-        counts, g1, b1, static_cast<const float*>(w1), g2, b2, static_cast<const float*>(w3),
-        H, W, c0, L, G, K, rows);
+        dense_block_recompute_kernel<KP, GP>, LayerTile<kTH, kTW, KP, GP>::kSmem, blocks,
+        strips, arrive, s, static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<float*>(halo), counts, g1, b1, static_cast<const float*>(w1), g2, b2,
+        static_cast<const float*>(w3), H, W, c0, L, G, K, rows);
   }
   return launch_cooperative(
-      dense_block_recompute_mma_kernel, LayerPlan::kSmem, blocks, strips, arrive, s,
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<bf16*>(halo), counts,
-      g1, b1, static_cast<const bf16*>(w1), g2, b2, static_cast<const bf16*>(w3), H, W, c0,
-      L, G, K, rows);
+      dense_block_recompute_mma_kernel<KP, GP>, LayerPlan<KP, GP>::kSmem, blocks, strips,
+      arrive, s, static_cast<const bf16*>(x), static_cast<bf16*>(out),
+      static_cast<bf16*>(halo), counts, g1, b1, static_cast<const bf16*>(w1), g2, b2,
+      static_cast<const bf16*>(w3), H, W, c0, L, G, K, rows);
 }
 
 }  // namespace
@@ -329,7 +337,8 @@ int run_block(const void* x, void* out, const float* g1, const float* b1, const 
 // strips blocks, at most as many as the card holds at once. Runs the whole
 // block, the copy of x into the buffer included, as one launch on `stream`,
 // without synchronising. Returns the first cudaError_t (0 on success;
-// cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold).
+// cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold;
+// cudaErrorInvalidValue past K 192 or G 48).
 extern "C" int dmm_dense_block_recompute(const void* x, void* out, const void* g1,
                                          const void* b1, const void* w1, const void* g2,
                                          const void* b2, const void* w3, int B, int H,
@@ -337,13 +346,24 @@ extern "C" int dmm_dense_block_recompute(const void* x, void* out, const void* g
                                          void* stream, void* halo, void* arrive, int rows,
                                          int blocks) {
   const int64_t cmax = static_cast<int64_t>(c0) + static_cast<int64_t>(L) * G;
-  if (B != 1 || H <= 0 || W <= 0 || c0 <= 0 || L <= 0 || G <= 0 || G > kGMax || K <= 0 ||
-      K > kKMax || rows <= 0 || blocks < (H + rows - 1) / rows || blocks > 65535 ||
-      (dtype != 0 && dtype != 1) || static_cast<int64_t>(H) * W * cmax > 0x7fffffff) {
+  if (B != 1 || H <= 0 || W <= 0 || c0 <= 0 || L <= 0 || G <= 0 || K <= 0 || rows <= 0 ||
+      blocks < (H + rows - 1) / rows || blocks > 65535 || (dtype != 0 && dtype != 1) ||
+      static_cast<int64_t>(H) * W * cmax > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return run_block(x, out, static_cast<const float*>(g1), static_cast<const float*>(b1), w1,
-                   static_cast<const float*>(g2), static_cast<const float*>(b2), w3, H, W,
-                   c0, L, G, K, dtype, halo, arrive, rows, blocks,
-                   static_cast<cudaStream_t>(stream));
+  const float* f_g1 = static_cast<const float*>(g1);
+  const float* f_b1 = static_cast<const float*>(b1);
+  const float* f_g2 = static_cast<const float*>(g2);
+  const float* f_b2 = static_cast<const float*>(b2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (layer_layout(K, G)) {
+    case 0:
+      return run_block<128, 32>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, H, W, c0, L, G, K,
+                                dtype, halo, arrive, rows, blocks, s);
+    case 1:
+      return run_block<192, 48>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, H, W, c0, L, G, K,
+                                dtype, halo, arrive, rows, blocks, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -43,8 +43,11 @@
 // The bfloat16 layer kernel (dense_layer_mma_kernel) runs
 // dense_layer_mma (csrc/dense_layer_mma.cuh) on the tensor cores, with w1
 // and w3 packed by ops/dense_block_strip.py::pack_layer_weights:
-//   w1   (L, cp, 128)         bf16, cp = cmax rounded up to 32, K padded
-//   w3   (L, 9, 128, 32)      bf16, K and G padded (zeros in the padding).
+//   w1   (L, cp, KP)          bf16, cp = cmax rounded up to 32, K padded
+//   w3   (L, 9, KP, GP)       bf16, K and G padded (zeros in the padding),
+// (KP, GP) the narrowest layout that holds (K, G): (128, 32) or (192, 48)
+// (layer_layout in dense_layer_tile.cuh). Both kernels are templates on the
+// layout, and the C entry picks the instantiation by shape.
 //
 // What bounds it on an H100: at block 1 of the 1280x1920 frame one block
 // call does about 102 GFLOP (116 with the ring) on 153,600 pixels and must
@@ -59,10 +62,11 @@
 // weight staging and a larger ring) measured the same there on an H100 and
 // 6-17% slower at block 1, so the kernel has the one tile. It runs ~1 ms a
 // block call, 11-17x the bound, bound by latency in its staging and
-// barriers more than by its MMAs (the header's note). Any H, W, c0 and
-// width are taken, with every edge masked;
-// K <= 128 and G <= 32 are the shared-memory plan's limits and anything
-// larger is refused.
+// barriers more than by its MMAs (the header's note). At (192, 48)
+// (DenseNet-161's blocks 1 and 2: 229 / 157 GFLOP, bounds ~0.23 / ~0.16 ms)
+// the body holds one block an SM (154 KB of shared memory), 132 slots. Any
+// H, W, c0 and width are taken, with every edge masked; K <= 192 and G <=
+// 48 are the widest layout's limits and anything larger is refused.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,6 +80,7 @@ namespace {
 constexpr int kTH = 8;                       // output tile rows
 constexpr int kTW = 16;                      // output tile columns
 
+template <int KMax, int GMax>
 __global__ void __launch_bounds__(kLayerThreads, 1)
 dense_layer_kernel(float* __restrict__ buf, const float* __restrict__ g1,
                    const float* __restrict__ b1, const float* __restrict__ w1,
@@ -85,13 +90,16 @@ dense_layer_kernel(float* __restrict__ buf, const float* __restrict__ g1,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const ImageFrame<float> frame{buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H,
                                 W, cmax};
-  dense_layer_tile<kTH, kTW>(smem_raw, frame, width, K, G, blockIdx.y * kTH,
-                             blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
+  dense_layer_tile<kTH, kTW, KMax, GMax>(smem_raw, frame, width, K, G, blockIdx.y * kTH,
+                                         blockIdx.x * kTW, g1, b1, w1, g2, b2, w3);
 }
 
-using LayerPlan = LayerMma<kTH, kTW>;
+template <int KP, int GP>
+using LayerPlan = LayerMma<kTH, kTW, KP, GP>;
 
-__global__ void __launch_bounds__(LayerPlan::kThreads, 2)
+template <int KP, int GP>
+__global__ void __launch_bounds__(LayerPlan<KP, GP>::kThreads,
+                                  LayerPlan<KP, GP>::kBlocksPerSm)
 dense_layer_mma_kernel(__nv_bfloat16* buf, const float* __restrict__ g1,
                        const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w1,
                        const float* __restrict__ g2, const float* __restrict__ b2,
@@ -101,7 +109,8 @@ dense_layer_mma_kernel(__nv_bfloat16* buf, const float* __restrict__ g1,
   const ImageFrame<__nv_bfloat16> frame{
       buf + static_cast<int64_t>(blockIdx.z) * H * W * cmax, H, W, cmax};
   const LayerArgs args{width, K, G, g1, b1, w1, g2, b2, w3};
-  dense_layer_mma<kTH, kTW>(smem_raw, frame, args, blockIdx.y * kTH, blockIdx.x * kTW);
+  dense_layer_mma<kTH, kTW, KP, GP>(smem_raw, frame, args, blockIdx.y * kTH,
+                                    blockIdx.x * kTW);
 }
 
 // the block input into channels [0, c0) of the buffer
@@ -112,13 +121,14 @@ int copy_input(const void* x, void* out, int B, int H, int W, int c0, int cmax,
       cudaMemcpyDeviceToDevice, s));
 }
 
+template <int KMax, int GMax>
 int run_block_f32(const void* x, void* out, const float* g1, const float* b1,
                   const void* w1, const float* g2, const float* b2, const void* w3,
                   int B, int H, int W, int c0, int L, int G, int K, cudaStream_t s) {
   const int cmax = c0 + L * G;
-  const size_t smem = LayerTile<kTH, kTW>::kSmem;
+  const size_t smem = LayerTile<kTH, kTW, KMax, GMax>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dense_layer_kernel<KMax, GMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (int rc = copy_input(x, out, B, H, W, c0, cmax, sizeof(float), s)) return rc;
@@ -126,7 +136,7 @@ int run_block_f32(const void* x, void* out, const float* g1, const float* b1,
   const float* w1t = static_cast<const float*>(w1);
   const float* w3t = static_cast<const float*>(w3);
   for (int l = 0; l < L; ++l) {
-    dense_layer_kernel<<<grid, kLayerThreads, smem, s>>>(
+    dense_layer_kernel<KMax, GMax><<<grid, kLayerThreads, smem, s>>>(
         static_cast<float*>(out), g1 + static_cast<int64_t>(l) * cmax,
         b1 + static_cast<int64_t>(l) * cmax, w1t + static_cast<int64_t>(l) * cmax * K,
         g2 + static_cast<int64_t>(l) * K, b2 + static_cast<int64_t>(l) * K,
@@ -137,14 +147,15 @@ int run_block_f32(const void* x, void* out, const float* g1, const float* b1,
   return 0;
 }
 
+template <int KP, int GP>
 int run_block_bf16(const void* x, void* out, const float* g1, const float* b1,
                    const void* w1, const float* g2, const float* b2, const void* w3,
                    int B, int H, int W, int c0, int L, int G, int K, cudaStream_t s) {
-  using P = LayerPlan;
+  using P = LayerPlan<KP, GP>;
   const int cmax = c0 + L * G;
   const int cp = (cmax + P::kCK - 1) / P::kCK * P::kCK;   // w1's packed rows
   cudaError_t err = cudaFuncSetAttribute(
-      dense_layer_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dense_layer_mma_kernel<KP, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(P::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (int rc = copy_input(x, out, B, H, W, c0, cmax, sizeof(__nv_bfloat16), s)) return rc;
@@ -152,7 +163,7 @@ int run_block_bf16(const void* x, void* out, const float* g1, const float* b1,
   const __nv_bfloat16* w1t = static_cast<const __nv_bfloat16*>(w1);
   const __nv_bfloat16* w3t = static_cast<const __nv_bfloat16*>(w3);
   for (int l = 0; l < L; ++l) {
-    dense_layer_mma_kernel<<<grid, P::kThreads, P::kSmem, s>>>(
+    dense_layer_mma_kernel<KP, GP><<<grid, P::kThreads, P::kSmem, s>>>(
         static_cast<__nv_bfloat16*>(out), g1 + static_cast<int64_t>(l) * cmax,
         b1 + static_cast<int64_t>(l) * cmax, w1t + static_cast<int64_t>(l) * cp * P::kK,
         g2 + static_cast<int64_t>(l) * K, b2 + static_cast<int64_t>(l) * K,
@@ -163,20 +174,35 @@ int run_block_bf16(const void* x, void* out, const float* g1, const float* b1,
   return 0;
 }
 
+// the block in `dtype` on the instantiation of layout (KP, GP)
+template <int KP, int GP>
+int run_block(const void* x, void* out, const float* g1, const float* b1, const void* w1,
+              const float* g2, const float* b2, const void* w3, int B, int H, int W,
+              int c0, int L, int G, int K, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return run_block_f32<KP, GP>(x, out, g1, b1, w1, g2, b2, w3, B, H, W, c0, L, G, K, s);
+    case 1:
+      return run_block_bf16<KP, GP>(x, out, g1, b1, w1, g2, b2, w3, B, H, W, c0, L, G, K, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, with w1 (L, cmax, K) and w3 (L, 3, 3, K, G) in f32; 1 =
-// bfloat16, with w1 and w3 packed (see the top). Runs the whole block: the
-// copy of x into the buffer, then one layer launch per layer, all on
-// `stream`, without synchronising. Returns the first cudaError_t (0 on
-// success).
+// bfloat16, with w1 and w3 packed in the layout of (K, G) (see the top). Runs
+// the whole block: the copy of x into the buffer, then one layer launch per
+// layer, all on `stream`, without synchronising. Returns the first
+// cudaError_t (0 on success; cudaErrorInvalidValue past K 192 or G 48).
 extern "C" int dmm_dense_block_strip(const void* x, void* out, const void* g1,
                                      const void* b1, const void* w1, const void* g2,
                                      const void* b2, const void* w3, int B, int H,
                                      int W, int c0, int L, int G, int K, int dtype,
                                      void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || c0 <= 0 || L <= 0 || G <= 0 || G > kGMax ||
-      K <= 0 || K > kKMax || B > 65535 || (H + kTH - 1) / kTH > 65535) {
+  if (B <= 0 || H <= 0 || W <= 0 || c0 <= 0 || L <= 0 || G <= 0 || K <= 0 ||
+      B > 65535 || (H + kTH - 1) / kTH > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -184,15 +210,24 @@ extern "C" int dmm_dense_block_strip(const void* x, void* out, const void* g1,
   const float* f_b1 = static_cast<const float*>(b1);
   const float* f_g2 = static_cast<const float*>(g2);
   const float* f_b2 = static_cast<const float*>(b2);
-  switch (dtype) {
+  switch (layer_layout(K, G)) {
     case 0:
-      return run_block_f32(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G, K, s);
+      return run_block<128, 32>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G,
+                                K, dtype, s);
     case 1:
-      return run_block_bf16(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G, K, s);
+      return run_block<192, 48>(x, out, f_g1, f_b1, w1, f_g2, f_b2, w3, B, H, W, c0, L, G,
+                                K, dtype, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The bf16 layer kernel's dynamic shared memory per block.
-extern "C" int dmm_dense_layer_mma_smem() { return static_cast<int>(LayerPlan::kSmem); }
+// The bf16 layer kernel's dynamic shared memory per block in the layout of
+// (K, G), or -1 past the widest.
+extern "C" int dmm_dense_layer_mma_smem(int K, int G) {
+  switch (layer_layout(K, G)) {
+    case 0: return static_cast<int>(LayerPlan<128, 32>::kSmem);
+    case 1: return static_cast<int>(LayerPlan<192, 48>::kSmem);
+    default: return -1;
+  }
+}

@@ -16,46 +16,56 @@
 // then the taps, each over K in steps of 16) whatever the tile's origin and
 // whichever warp holds it, so K2 and K5 give the same bits.
 //
-// What bounds it on an H100: at block 1 of the 1280x1920 frame one block
-// call does about 102 GFLOP (116 with the ring) and must move about 0.1 GB:
-// operations, ~0.1 ms on the tensor cores. The CUDA-core body
+// What bounds it on an H100: at block 1 of the 1280x1920 frame one
+// DenseNet-121 block call does about 102 GFLOP (116 with the ring) and must
+// move about 0.1 GB: operations, ~0.1 ms on the tensor cores (DenseNet-161's
+// block 1 does 229 GFLOP, ~0.23 ms). The CUDA-core body
 // (dense_layer_tile.cuh) ran at ~80x that in bf16: f32 FMAs, w1 and w3
 // restaged and converted to f32 for every tile and every tap, staging and
 // FMAs one after the other at one block per SM (145 registers a thread).
 // This body:
 //   * runs the 1x1 as a GEMM on mma.sync m16n8k16 (bf16 in, f32
 //     accumulation) fed by ldmatrix: M = the tile's halo pixels padded to 16
-//     rows, N = 128 (K), K-dimension = width in chunks of 32 channels;
+//     rows, N = KP (the padded K), K-dimension = width in chunks of 32
+//     channels; two warps over M by four over N, each warp KP / 4 columns
+//     (4 n8 tiles at KP 128, 6 at KP 192);
 //   * stages each chunk of the prefix with cp.async, double-buffered (the
 //     next chunk's copy overlaps this chunk's products), and applies BN1 +
 //     ReLU in place in shared memory (the ReLU keeps BN1 out of w1), beside
 //     the chunk's 32 rows of w1 read straight in bf16;
-//   * runs the 3x3 as an implicit GEMM, nine taps of (output pixels x 128)
-//     @ (128 x G), its A rows the tap's shifted pixels of y2 in shared
+//   * runs the 3x3 as an implicit GEMM, nine taps of (output pixels x KP)
+//     @ (KP x GP), its A rows the tap's shifted pixels of y2 in shared
 //     memory, the taps of w3 streamed two at a time through the freed ring.
 //     Its work is dealt over the 8 warps in units of one m16 tile of output
 //     pixels (padded to a multiple of 16 with rows that are computed and
-//     never stored) by one n8 pair of G, each warp's units of one m16 tile,
-//     so one A fragment feeds them all: 8x16 has 8 m16 tiles, 16 units,
-//     each warp both pairs of one tile (K2's split); 8x12 has 6 m16 tiles,
-//     12 units, warps 0-5 both pairs of one tile, warps 6-7 idle, the same
-//     two units a warp at most; 4x6 (24 pixels) has 2 m16 tiles, 4 units,
-//     warps 0-3 one pair each;
-//   * needs w1 and w3 packed with K padded to 128 and G to 32 (zeros) by
-//     ops/dense_block_strip.py::pack_layer_weights, so every K <= 128 and G
-//     <= 32 the callers accept runs; the padded columns cost products, not
-//     results;
-//   * fits two 256-thread blocks on an SM (97 KB of shared memory at 8x16,
-//     at most 128 registers a thread), so one block's staging runs under
-//     the other's products.
+//     never stored) by one n8 pair of GP, each warp's units of one m16 tile,
+//     so one A fragment feeds them all. At GP 32 (two pairs): 8x16 has 8
+//     m16 tiles, 16 units, each warp both pairs of one tile (K2's split);
+//     8x12 has 6 m16 tiles, 12 units, warps 0-5 both pairs of one tile,
+//     warps 6-7 idle; 4x6 (24 pixels) has 2 m16 tiles, 4 units, warps 0-3
+//     one pair each. At GP 48 (three pairs): 8x16 24 units, each warp the
+//     three pairs of one tile; 8x12 18 units on warps 0-5; 4x6 6 units,
+//     warps 0-5 one pair each;
+//   * needs w1 and w3 packed with K padded to KP and G to GP (zeros) by
+//     ops/dense_block_strip.py::pack_layer_weights, in one of two layouts:
+//     (KP, GP) = (128, 32) for every block with K <= 128 and G <= 32
+//     (DenseNet-121, -169, -201), (192, 48) for the rest up to K 192 and G
+//     48 (DenseNet-161's growth 48). The padded columns cost products, not
+//     results, and the caller picks the layout by shape;
+//   * at (128, 32) fits two 256-thread blocks on an SM (97 KB of shared
+//     memory at 8x16, at most 128 registers a thread), so one block's
+//     staging runs under the other's products; at (192, 48) the ring holds
+//     four taps of w3 (86 KB) and y2 is 72 KB, 154 KB at 8x16: one block an
+//     SM (kBlocksPerSm), with up to 255 registers for the 1x1's 144
+//     accumulators a thread.
 // The 1x1 is recomputed on the halo ring (180 / 128 = 1.41x at 8x16, with
 // the M padding 1.5x). What bounds it now (K2 ~1 ms a block call at
 // 1280x1920, 9-14x the bound; K4 0.65-2.3 ms at b256, 8-25x; K5 1.05-1.2
-// ms; on an H100 at 700 W, by variants with one part removed): no one
-// part. Removing the BN1 pass saves 14-27%, the 1x1's MMAs 11-21%, the
-// 3x3's MMAs 5-22%; the rest is the latency of each chunk's staging and
-// barriers. The float32 kernels keep the CUDA-core body: f32 is the check
-// type, and TF32 tensor cores would not meet its 1e-4 bound.
+// ms; on an H100 at 700 W, by variants with one part removed, all at KP
+// 128): no one part. Removing the BN1 pass saves 14-27%, the 1x1's MMAs
+// 11-21%, the 3x3's MMAs 5-22%; the rest is the latency of each chunk's
+// staging and barriers. The float32 kernels keep the CUDA-core body: f32 is
+// the check type, and TF32 tensor cores would not meet its 1e-4 bound.
 #pragma once
 
 #include <stdint.h>
@@ -64,11 +74,14 @@
 
 namespace {
 
-template <int TH, int TW>
+template <int TH, int TW, int KP, int GP>
 struct LayerMma {
   static constexpr int kThreads = 256;               // 8 warps
-  static constexpr int kK = 128;                     // bottleneck width, padded
-  static constexpr int kG = 32;                      // growth rate, padded
+  static constexpr int kK = KP;                      // bottleneck width, padded
+  static constexpr int kG = GP;                      // growth rate, padded
+  static_assert(kK % 64 == 0 && kG % 16 == 0, "4 warps of n8 pairs over K, n8 pairs of G");
+  static constexpr int kWN = kK / 4;                 // the 1x1's columns a warp
+  static constexpr int kNT = kWN / 8;                //   in n8 tiles
   static constexpr int kHW = TW + 2;                 // halo columns
   static constexpr int kHalo = (TH + 2) * kHW;       // halo pixels: the 1x1's M
   static constexpr int kMT1 = (kHalo + 15) / 16;     // its m16 tiles
@@ -80,6 +93,8 @@ struct LayerMma {
   static constexpr int kWarpUnits = (kUnits + 7) / 8;  // per warp, all of one m16 tile
   static constexpr int kWarpsPerMT3 = (kG / 16) / kWarpUnits;  // warps sharing one
   static_assert(kMT3 <= 8, "the 3x3's m16 tiles over the 8 warps");
+  static_assert((kG / 16) % kWarpUnits == 0 && kMT3 * kWarpsPerMT3 <= 8,
+                "each warp's units of one m16 tile, every unit on a warp");
   static constexpr int kCK = 32;                     // prefix channels per chunk
   static constexpr int kAS = kCK + 8;                // row strides in bf16, each
   static constexpr int kWS = kK + 8;                 //   conflict-free for
@@ -90,19 +105,23 @@ struct LayerMma {
   static constexpr int kRingBytes = 2 * kStageBytes > 4 * kTapBytes ? 2 * kStageBytes
                                                                     : 4 * kTapBytes;
   static constexpr size_t kSmem = kRingBytes + size_t(kHalo) * kWS * 2;  // + y2
-  // two blocks an SM: 228 KB of shared memory, 1 KB of it reserved a block
-  static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
+  // 228 KB of shared memory an SM, 1 KB of it reserved a block: two blocks
+  // where two fit (every tile at (128, 32), 4x6 at (192, 48)), else one.
+  // The kernels' __launch_bounds__ take it, so a two-block body keeps to 128
+  // registers a thread.
+  static_assert(kSmem + 1024 <= 233472, "one block an SM");
+  static constexpr int kBlocksPerSm = 2 * (kSmem + 1024) <= 233472 ? 2 : 1;
 };
 
 // What a layer call reads besides its frame and tile: the layer's width, K
 // and G and its layer-sliced operands, g1, b1 (width), g2, b2 (K) in f32, w1
-// (rows >= width rounded up to 32, 128) and w3 (9, 128, 32) packed in bf16.
+// (rows >= width rounded up to 32, KP) and w3 (9, KP, GP) packed in bf16.
 // K2's kernel builds it from its parameters. K4's and K5's kernels, whose
 // one launch walks layers and tiles, keep it (and their frame) in shared
 // memory: the body reads each field where it uses it, and since every
 // __syncthreads() makes the compiler load shared memory anew, it holds no
 // register for them across its accumulators, which fill the 128 registers
-// of two blocks an SM.
+// of two blocks an SM at (128, 32).
 struct LayerArgs {
   int width, K, G;
   const float* g1;
@@ -116,11 +135,11 @@ struct LayerArgs {
 // The layer over the tile whose top-left output pixel is (y0, x0) of the
 // pixels of `frame`, with `args` as above. Ends with a barrier, so a block
 // may call it again at once for another tile.
-template <int TH, int TW, typename Frame>
+template <int TH, int TW, int KP, int GP, typename Frame>
 __device__ __forceinline__ void dense_layer_mma(unsigned char* smem, const Frame& frame,
                                                 const LayerArgs& args, int y0, int x0) {
   using bf16 = __nv_bfloat16;
-  using P = LayerMma<TH, TW>;
+  using P = LayerMma<TH, TW, KP, GP>;
   constexpr int kHW = P::kHW;
   constexpr int kHalo = P::kHalo;
   constexpr int kCK = P::kCK;
@@ -172,15 +191,17 @@ __device__ __forceinline__ void dense_layer_mma(unsigned char* smem, const Frame
   };
 
   // ---- 1x1 over the halo: warp (wm, wn) -> m16 tiles wm + 2 i, columns
-  // 32 wn + [0, 32) of K: one A fragment live at a time, each B pair used
+  // kWN wn + [0, kWN) of K: one A fragment live at a time, each B pair used
   // on all the warp's m16 tiles -------------------------------------------------
+  constexpr int kWN = P::kWN;
+  constexpr int kNT = P::kNT;
   const int wm = warp & 1;
   const int wn = warp >> 1;
-  float acc[P::kWarpMT1][4][4];
+  float acc[P::kWarpMT1][kNT][4];
 #pragma unroll
   for (int i = 0; i < P::kWarpMT1; ++i)
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int t = 0; t < kNT; ++t)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][t][r] = 0.f;
 
@@ -218,18 +239,20 @@ __device__ __forceinline__ void dense_layer_mma(unsigned char* smem, const Frame
     __syncthreads();
 #pragma unroll
     for (int ks = 0; ks < kCK / 16; ++ks) {
-      uint32_t b0[4], b1[4];
-      ldsm_x4_trans(b0, w1s + (ks * 16 + arow) * kWS + wn * 32 + acol);
-      ldsm_x4_trans(b1, w1s + (ks * 16 + arow) * kWS + wn * 32 + 16 + acol);
+      uint32_t b[kNT / 2][4];
+#pragma unroll
+      for (int q = 0; q < kNT / 2; ++q)
+        ldsm_x4_trans(b[q], w1s + (ks * 16 + arow) * kWS + wn * kWN + 16 * q + acol);
 #pragma unroll
       for (int i = 0; i < P::kWarpMT1; ++i) {
         if (wm + 2 * i >= P::kMT1) continue;
         uint32_t a[4];
         ldsm_x4(a, act + ((wm + 2 * i) * 16 + arow) * kAS + ks * 16 + acol);
-        mma_bf16(acc[i][0], a, b0[0], b0[1]);
-        mma_bf16(acc[i][1], a, b0[2], b0[3]);
-        mma_bf16(acc[i][2], a, b1[0], b1[1]);
-        mma_bf16(acc[i][3], a, b1[2], b1[3]);
+#pragma unroll
+        for (int q = 0; q < kNT / 2; ++q) {
+          mma_bf16(acc[i][2 * q], a, b[q][0], b[q][1]);
+          mma_bf16(acc[i][2 * q + 1], a, b[q][2], b[q][3]);
+        }
       }
     }
   }
@@ -264,8 +287,8 @@ __device__ __forceinline__ void dense_layer_mma(unsigned char* smem, const Frame
       if (p >= kHalo) continue;
       const bool inside = frame.inside(y0 - 1 + p / kHW, x0 - 1 + p % kHW);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int n = wn * 32 + t * 8 + 2 * (lane & 3);
+      for (int t = 0; t < kNT; ++t) {
+        const int n = wn * kWN + t * 8 + 2 * (lane & 3);
         const float lo = (inside && n < K) ? fmaxf(fmaf(acc[i][t][2 * hf], g2[n], b2[n]), 0.f)
                                            : 0.f;
         const float hi = (inside && n + 1 < K)

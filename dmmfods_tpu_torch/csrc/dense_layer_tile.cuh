@@ -22,17 +22,24 @@
 // a pixel are read: the slabs above are unwritten (an uninitialised buffer
 // may hold NaN, and 0 * NaN is NaN).
 //
-// 256 threads:
+// The body is a template on (KMax, GMax), the widest K and G it takes: one
+// of the two layouts below, the one the caller picks by shape
+// (layer_layout), the bf16 body's too (dense_layer_mma.cuh). 256 threads:
 //   1. stage the tile's (TH+2) x (TW+2) halo of the prefix 32 channels at a
 //      time, BN1-folded and ReLU'd on the way into shared memory, beside the
 //      matching 32 rows of w1, and accumulate the 1x1 in f32 registers
-//      (kPI pixels x 8 channels per thread);
+//      (kPI pixels x kKT channels per thread), in kPasses passes over the
+//      prefix of kKPass columns of K each: one pass of 128 (8 channels a
+//      thread) at KMax 128, two of 96 (6 a thread) at KMax 192, so the
+//      accumulators a thread holds do not grow with K (a pass restages the
+//      prefix: f32 is the check type);
 //   2. apply BN2 + ReLU + the image mask and keep y2 for the whole halo in
-//      shared memory (halo x 128);
+//      shared memory (halo x KMax), each pass its columns;
 //   3. run the 3x3 from shared memory, one tap of w3 staged at a time
-//      (kOI pixels x 4 channels per thread), and store the G new channels.
-// The 1x1 is recomputed on the halo ring. K <= 128 and G <= 32 are the
-// shared-memory plan's limits; the callers refuse anything larger.
+//      (kOI pixels x GMax / 8 channels per thread), and store the G new
+//      channels.
+// The 1x1 is recomputed on the halo ring. At (192, 48) y2 is 139,680 B at
+// 8x16 and the block 176,672 B: one block an SM, as at (128, 32).
 #pragma once
 
 #include <stdint.h>
@@ -40,10 +47,23 @@
 namespace {
 
 constexpr int kLayerThreads = 256;
-constexpr int kKMax = 128;                   // bottleneck width K (bn_size * G)
-constexpr int kKS = kKMax + 2;               // y2 row stride
-constexpr int kGMax = 32;                    // growth rate G
 constexpr int kCK = 32;                      // prefix channels staged per step
+
+// The padded (K, G) layouts of the layer bodies, by index: every block with
+// K <= 128 and G <= 32 runs the first (DenseNet-121, -169, -201), any other
+// with K <= 192 and G <= 48 the second (DenseNet-161: growth 48, K 192).
+// ops/dense_block_strip.py::LAYOUTS mirrors them.
+constexpr int kLayouts = 2;
+constexpr int kLayoutK[kLayouts] = {128, 192};
+constexpr int kLayoutG[kLayouts] = {32, 48};
+
+// the index of the narrowest layout that holds bottleneck K and growth G,
+// or -1 past the widest
+inline int layer_layout(int K, int G) {
+  for (int i = 0; i < kLayouts; ++i)
+    if (K <= kLayoutK[i] && G <= kLayoutG[i]) return i;
+  return -1;
+}
 
 // The whole H x W image of cmax channels at img, NHWC (T: float or
 // __nv_bfloat16, the bf16 body's too).
@@ -60,8 +80,15 @@ struct ImageFrame {
   }
 };
 
-template <int TH, int TW>
+template <int TH, int TW, int KMax, int GMax>
 struct LayerTile {
+  static constexpr int kKS = KMax + 2;                // y2 row stride
+  static constexpr int kKPass = KMax <= 128 ? KMax : KMax / 2;  // 1x1 columns a pass
+  static constexpr int kPasses = KMax / kKPass;
+  static constexpr int kKT = kKPass / 16;             // a thread's columns a pass
+  static constexpr int kGT = GMax / 8;                // a thread's 3x3 channels
+  static_assert(kKPass % 16 == 0 && kPasses * kKPass == KMax && GMax % 8 == 0,
+                "16 threads over a pass's columns, 8 over G");
   static constexpr int kHW = TW + 2;                  // halo columns
   static constexpr int kHalo = (TH + 2) * kHW;        // halo pixels
   static constexpr int kNP = (kHalo + 15) / 16 * 16;  // padded to 16 x kPI
@@ -70,97 +97,103 @@ struct LayerTile {
   static constexpr int kOut = TH * TW;
   static constexpr int kOI = (kOut + 31) / 32;        // 3x3 pixels per thread
   static constexpr int kStageFloats =
-      (kCK * kNPS + kCK * kKMax) > (kKMax * kGMax) ? (kCK * kNPS + kCK * kKMax)
-                                                   : (kKMax * kGMax);
+      (kCK * kNPS + kCK * kKPass) > (KMax * GMax) ? (kCK * kNPS + kCK * kKPass)
+                                                  : (KMax * GMax);
   static_assert(kOut <= 128 && kNP <= 192, "tile too large for the register plan");
   static constexpr size_t kSmem = (kStageFloats + kHalo * kKS) * sizeof(float);
+  static_assert(kSmem <= 232448, "a block's shared memory");
 };
 
 // The layer over the tile whose top-left output pixel is (y0, x0) of the
 // pixels of `frame` (a Frame as above: inside(y, x) and at(y, x)). Layer-sliced
 // operands: g1, b1 (cmax) and w1 (cmax, K) from the layer's row, g2, b2 (K),
-// w3 (3, 3, K, G). Ends with a barrier, so a block may call it again at once
-// for another tile.
-template <int TH, int TW, typename Frame>
+// w3 (3, 3, K, G), with K <= KMax and G <= GMax. Ends with a barrier, so a
+// block may call it again at once for another tile.
+template <int TH, int TW, int KMax, int GMax, typename Frame>
 __device__ __forceinline__ void dense_layer_tile(
     unsigned char* smem_raw, const Frame& frame, int width, int K, int G,
     int y0, int x0, const float* __restrict__ g1, const float* __restrict__ b1,
     const float* __restrict__ w1, const float* __restrict__ g2,
     const float* __restrict__ b2, const float* __restrict__ w3) {
-  using Tile = LayerTile<TH, TW>;
+  using Tile = LayerTile<TH, TW, KMax, GMax>;
   constexpr int kHW = Tile::kHW;
   constexpr int kHalo = Tile::kHalo;
   constexpr int kNP = Tile::kNP;
   constexpr int kPI = Tile::kPI;
   constexpr int kNPS = Tile::kNPS;
+  constexpr int kKS = Tile::kKS;
+  constexpr int kKPass = Tile::kKPass;
+  constexpr int kKT = Tile::kKT;
   float* stage = reinterpret_cast<float*>(smem_raw);
   float* acts = stage;                       // [kCK][kNPS]
-  float* w1s = stage + kCK * kNPS;           // [kCK][kKMax]
-  float* w3s = stage;                        // [kKMax][kGMax], after the 1x1
+  float* w1s = stage + kCK * kNPS;           // [kCK][kKPass]
+  float* w3s = stage;                        // [KMax][GMax], after the 1x1
   float* y2s = stage + Tile::kStageFloats;   // [kHalo][kKS]
 
   const int tid = threadIdx.x;
 
-  // ---- 1x1 over the halo: pixels tp + 16 i, channels tk + 16 j ----------
+  // ---- 1x1 over the halo: pixels tp + 16 i, channels kb + tk + 16 j ----
   const int tk = tid % 16;
   const int tp = tid / 16;
-  float acc[kPI][8];
+  for (int kb = 0; kb < KMax; kb += kKPass) {
+    float acc[kPI][kKT];
 #pragma unroll
-  for (int i = 0; i < kPI; ++i)
+    for (int i = 0; i < kPI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < kKT; ++j) acc[i][j] = 0.f;
 
-  for (int c0 = 0; c0 < width; c0 += kCK) {
-    for (int e = tid; e < kNP * kCK; e += kLayerThreads) {
-      const int p = e / kCK;
-      const int kk = e % kCK;
-      const int c = c0 + kk;
-      float v = 0.f;
-      if (p < kHalo && c < width) {
-        const int gy = y0 - 1 + p / kHW;
-        const int gx = x0 - 1 + p % kHW;
-        if (frame.inside(gy, gx)) {
-          v = fmaxf(fmaf(frame.at(gy, gx)[c], g1[c], b1[c]), 0.f);
+    for (int c0 = 0; c0 < width; c0 += kCK) {
+      for (int e = tid; e < kNP * kCK; e += kLayerThreads) {
+        const int p = e / kCK;
+        const int kk = e % kCK;
+        const int c = c0 + kk;
+        float v = 0.f;
+        if (p < kHalo && c < width) {
+          const int gy = y0 - 1 + p / kHW;
+          const int gx = x0 - 1 + p % kHW;
+          if (frame.inside(gy, gx)) {
+            v = fmaxf(fmaf(frame.at(gy, gx)[c], g1[c], b1[c]), 0.f);
+          }
         }
+        acts[kk * kNPS + p] = v;
       }
-      acts[kk * kNPS + p] = v;
-    }
-    for (int e = tid; e < kCK * kKMax; e += kLayerThreads) {
-      const int kk = e / kKMax;
-      const int k = e % kKMax;
-      const int c = c0 + kk;
-      w1s[e] = (c < width && k < K) ? w1[static_cast<int64_t>(c) * K + k] : 0.f;
-    }
-    __syncthreads();
+      for (int e = tid; e < kCK * kKPass; e += kLayerThreads) {
+        const int kk = e / kKPass;
+        const int k = kb + e % kKPass;
+        const int c = c0 + kk;
+        w1s[e] = (c < width && k < K) ? w1[static_cast<int64_t>(c) * K + k] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < kCK; ++kk) {
-      float av[kPI], wv[8];
+      for (int kk = 0; kk < kCK; ++kk) {
+        float av[kPI], wv[kKT];
 #pragma unroll
-      for (int i = 0; i < kPI; ++i) av[i] = acts[kk * kNPS + tp + 16 * i];
+        for (int i = 0; i < kPI; ++i) av[i] = acts[kk * kNPS + tp + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = w1s[kk * kKMax + tk + 16 * j];
+        for (int j = 0; j < kKT; ++j) wv[j] = w1s[kk * kKPass + tk + 16 * j];
 #pragma unroll
-      for (int i = 0; i < kPI; ++i)
+        for (int i = 0; i < kPI; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          for (int j = 0; j < kKT; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
 
-  // ---- BN2 + ReLU + the image mask -> y2 in shared memory ---------------
+    // ---- BN2 + ReLU + the image mask -> y2 in shared memory -------------
 #pragma unroll
-  for (int i = 0; i < kPI; ++i) {
-    const int p = tp + 16 * i;
-    if (p >= kHalo) continue;
-    const int gy = y0 - 1 + p / kHW;
-    const int gx = x0 - 1 + p % kHW;
-    const bool inside = frame.inside(gy, gx);
+    for (int i = 0; i < kPI; ++i) {
+      const int p = tp + 16 * i;
+      if (p >= kHalo) continue;
+      const int gy = y0 - 1 + p / kHW;
+      const int gx = x0 - 1 + p % kHW;
+      const bool inside = frame.inside(gy, gx);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = tk + 16 * j;
-      if (k >= K) continue;
-      const float v = inside ? fmaxf(fmaf(acc[i][j], g2[k], b2[k]), 0.f) : 0.f;
-      y2s[p * kKS + k] = v;
+      for (int j = 0; j < kKT; ++j) {
+        const int k = kb + tk + 16 * j;
+        if (k >= K) continue;
+        const float v = inside ? fmaxf(fmaf(acc[i][j], g2[k], b2[k]), 0.f) : 0.f;
+        y2s[p * kKS + k] = v;
+      }
     }
   }
 
@@ -174,32 +207,33 @@ __device__ __forceinline__ void dense_layer_tile(
     const int oc = o < Tile::kOut ? o : 0;   // a slot past the tile reads in range
     base[i] = (oc / TW) * kHW + (oc % TW);
   }
-  float acc2[Tile::kOI][4];
+  constexpr int kGT = Tile::kGT;
+  float acc2[Tile::kOI][kGT];
 #pragma unroll
   for (int i = 0; i < Tile::kOI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc2[i][j] = 0.f;
+    for (int j = 0; j < kGT; ++j) acc2[i][j] = 0.f;
 
   for (int tap = 0; tap < 9; ++tap) {
     __syncthreads();  // y2s complete (tap 0) / w3s free (later taps)
     const float* w3t = w3 + static_cast<int64_t>(tap) * K * G;
-    for (int e = tid; e < kKMax * kGMax; e += kLayerThreads) {
-      const int k = e / kGMax;
-      const int g = e % kGMax;
+    for (int e = tid; e < KMax * GMax; e += kLayerThreads) {
+      const int k = e / GMax;
+      const int g = e % GMax;
       w3s[e] = (k < K && g < G) ? w3t[k * G + g] : 0.f;
     }
     __syncthreads();
     const int shift = (tap / 3) * kHW + (tap % 3);
     for (int k = 0; k < K; ++k) {
-      float wv[4], yv[Tile::kOI];
+      float wv[kGT], yv[Tile::kOI];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w3s[k * kGMax + tg + 8 * j];
+      for (int j = 0; j < kGT; ++j) wv[j] = w3s[k * GMax + tg + 8 * j];
 #pragma unroll
       for (int i = 0; i < Tile::kOI; ++i) yv[i] = y2s[(base[i] + shift) * kKS + k];
 #pragma unroll
       for (int i = 0; i < Tile::kOI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(yv[i], wv[j], acc2[i][j]);
+        for (int j = 0; j < kGT; ++j) acc2[i][j] = fmaf(yv[i], wv[j], acc2[i][j]);
     }
   }
 
@@ -211,7 +245,7 @@ __device__ __forceinline__ void dense_layer_tile(
     if (o >= Tile::kOut || !frame.inside(gy, gx)) continue;
     float* dst = frame.at(gy, gx) + width;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kGT; ++j) {
       const int g = tg + 8 * j;
       if (g < G) dst[g] = acc2[i][j];
     }

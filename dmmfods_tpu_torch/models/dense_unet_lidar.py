@@ -33,17 +33,20 @@ a hand-written CUDA kernel (the plain version on a CPU tensor):
 The strip, K4 and K6 gates are JAX's own decisions, its TPU cost models
 included, kept so that both packages run those kernels on the same shapes;
 a kernel with no JAX gate to match needs no such model. The strip, K4 and
-head gates also require their CUDA kernels' own limits (growth, K, c_mid,
-classes). An architecture past them runs the plain loop and head, chosen by
-shape, where JAX runs its kernels: DenseNet-161 (growth 48, head c_mid 96)
-is such a gap, open kernel work in ``ROADMAP.md`` section 2. Each gate takes
+head gates also require their CUDA kernels' own limits (growth <= 48 and K
+<= 192 for the blocks, which every DenseNet of the repo meets; c_mid and
+classes for the head). An architecture past them runs the plain loop and
+head, chosen by shape, where JAX runs its kernels: DenseNet-161's head
+(c_mid 96) is such a gap, open kernel work in ``ROADMAP.md`` section 2,
+while its blocks run K2, K4 and K5 where JAX's do. Each gate takes
 ``kernel_limits=False`` to give JAX's decision alone.
 
 With the default config, at the 128x192 working resolution only K1
 engages; at 1280x1920 batch 1 the blocks 1 and 2 of both streams (K2) and
-the head do too. The opt-ins add K4 on the 128x192 blocks (DenseNet-121:
-three block calls at b1, four at b8, five from b32), K6 on both stems at
-b1, and K5 in place of K2 at 1280x1920.
+the head (DenseNet-121's; not DenseNet-161's) do too. The opt-ins add K4 on
+the 128x192 blocks (DenseNet-121: three block calls at b1, four at b8, five
+from b32; DenseNet-161: three at every batch), K6 on both stems at b1, and
+K5 in place of K2 at 1280x1920.
 
 Layout: :meth:`DenseUNetLidar.forward` takes and returns NHWC tensors, like
 the JAX model. Inside, tensors are NCHW in shape and ``channels_last`` in

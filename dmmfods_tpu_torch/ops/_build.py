@@ -125,12 +125,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p] * 5 + [ctypes.c_int] * 6 + [p]
     fn.restype = ctypes.c_int
     fn = lib.dmm_dense_block_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [p]
+    fn.argtypes = [ctypes.c_int] * 6 + [p]
     fn.restype = ctypes.c_int
-    for name in ("dmm_dense_layer_mma_smem", "dmm_phase_head_mma_smem"):
-        fn = getattr(lib, name)
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
+    fn = lib.dmm_dense_layer_mma_smem
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    fn = lib.dmm_phase_head_mma_smem
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
     fn = lib.dmm_stem_pool_mma_smem
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int

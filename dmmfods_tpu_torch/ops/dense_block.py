@@ -19,11 +19,12 @@ cores with the weights of :func:`.dense_block_strip.pack_layer_weights`.
   (the TPU's VMEM budget, its 128-lane alignment and the dtype's bytes), so
   that the port runs K4 on exactly the blocks where the JAX model runs its
   kernel on a TPU; :func:`eligible` adds the kernel's own limits on growth
-  and K (:func:`.dense_block_strip.within_limits`). A block past them runs
-  the plain loop, by shape, where JAX runs its kernel (DenseNet-161's growth
-  48): a gap in the port's layer body, open in ``ROADMAP.md`` section 2.
+  and K (:func:`.dense_block_strip.within_limits`: growth <= 48, K <= 192,
+  which DenseNet-121's and DenseNet-161's blocks meet). A block past them
+  runs the plain loop, by shape.
 * :func:`block_plan` mirrors the kernel's launch plan: its tile, its
-  clusters and how the bf16 body deals a tile over its warps. The C entry
+  clusters and how the bf16 body deals a tile over its warps in the
+  block's layout (:func:`.dense_block_strip.layout`). The C entry
   ``dmm_dense_block_plan`` reports the plan the kernel makes, and
   ``chip_smoke.py`` holds the two together.
 """
@@ -34,7 +35,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .dense_block_strip import (MAX_GROWTH, dense_block_strip_reference, run_block_kernel,
+from .dense_block_strip import (dense_block_strip_reference, layout, run_block_kernel,
                                 within_limits)
 from .fused import LaunchCount, fold_bn
 
@@ -72,26 +73,30 @@ class BlockPlan(NamedTuple):
                 self.units, self.warp_units, self.smem)
 
 
-def mma_smem(th, tw):
+def mma_smem(th, tw, kp=128, gp=32):
     """The bf16 layer body's dynamic shared memory for a ``th`` x ``tw`` tile
-    (``LayerMma::kSmem`` of ``csrc/dense_layer_mma.cuh``): a two-slot ring of
-    the halo's 32-channel chunk beside 32 rows of w1 (or four taps of w3,
-    whichever is larger), then y2 over the halo; rows padded by 8 bf16."""
+    in the padded layout ``(kp, gp)`` (``LayerMma::kSmem`` of
+    ``csrc/dense_layer_mma.cuh``): a two-slot ring of the halo's 32-channel
+    chunk beside 32 rows of w1 (or four taps of w3, whichever is larger),
+    then y2 over the halo; rows padded by 8 bf16."""
     halo = (th + 2) * (tw + 2)
-    stage = -(-halo // 16) * 16 * (32 + 8) * 2 + 32 * (128 + 8) * 2
-    return max(2 * stage, 4 * 128 * (32 + 8) * 2) + halo * (128 + 8) * 2
+    stage = -(-halo // 16) * 16 * (32 + 8) * 2 + 32 * (kp + 8) * 2
+    return max(2 * stage, 4 * kp * (gp + 8) * 2) + halo * (kp + 8) * 2
 
 
-def block_plan(batch, h, w, sms):
-    """K4's launch plan for ``batch`` images of ``h`` x ``w`` on a card of
-    ``sms`` SMs, as ``csrc/dense_block.cu`` makes it. The tile is the one of
-    ``BLOCK_TILES`` with the least padded halo work (its tiles times the
-    1x1's M, the halo padded to 16 rows), the larger on a tie. The cluster is
-    the most blocks an image, up to ``MAX_CLUSTER`` and ``ceil(sms /
-    batch)``, that divide its tiles. The 3x3's units are (m16 tile, n8 pair
-    of G's 32); each warp runs ``warp_units`` of them, all of one m16 tile
-    (one A fragment): at most two a warp, as few warps to a tile as that
-    allows."""
+def block_plan(batch, h, w, sms, growth=32, k=128):
+    """K4's launch plan for ``batch`` images of ``h`` x ``w`` with ``growth``
+    and bottleneck ``k`` on a card of ``sms`` SMs, as ``csrc/dense_block.cu``
+    makes it. The tile is the one of ``BLOCK_TILES`` with the least padded
+    halo work (its tiles times the 1x1's M, the halo padded to 16 rows), the
+    larger on a tie. The cluster is the most blocks an image, up to
+    ``MAX_CLUSTER`` and ``ceil(sms / batch)``, that divide its tiles. The
+    3x3's units are (m16 tile, n8 pair of the layout's padded G: two pairs
+    at G 32, three at G 48); each warp runs ``warp_units`` of them, all of
+    one m16 tile (one A fragment): as few a warp as the 8 warps allow, as
+    few warps to a tile as that allows."""
+    kp, gp = layout(growth, k)
+
     def halo_m16(th, tw):
         return -(-(th + 2) * (tw + 2) // 16)
 
@@ -104,7 +109,7 @@ def block_plan(batch, h, w, sms):
     want = min(-(-sms // batch), MAX_CLUSTER)
     cluster = next((c for c in range(want, 1, -1) if tiles % c == 0), 1)
     m16_3x3 = -(-th * tw // 16)
-    pairs = MAX_GROWTH // 16
+    pairs = gp // 16
     units = m16_3x3 * pairs
     warp_units = -(-units // WARPS)
     per_tile = pairs // warp_units            # warps sharing an m16 tile
@@ -112,7 +117,7 @@ def block_plan(batch, h, w, sms):
         tuple((i // per_tile, (i % per_tile) * warp_units + j) for j in range(warp_units))
         if i // per_tile < m16_3x3 else () for i in range(WARPS))
     return BlockPlan((th, tw), tiles, cluster, halo_m16(th, tw), m16_3x3, units,
-                     warp_units, mma_smem(th, tw), warps)
+                     warp_units, mma_smem(th, tw, kp, gp), warps)
 
 
 def fold_block_params(block):
@@ -195,7 +200,7 @@ def dense_block(x, folded, packed=None):
     call then packs).
 
     On a CUDA device ``x`` must be a contiguous NHWC tensor in float32 or
-    bfloat16 and ``K <= 128``, ``G <= 32``; the whole block is one launch on
+    bfloat16 and ``K <= 192``, ``G <= 48``; the whole block is one launch on
     the current stream, and a failure raises. On the CPU the plain version
     runs.
     """

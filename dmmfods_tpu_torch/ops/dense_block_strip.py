@@ -26,12 +26,11 @@ For each layer ``l`` (``width = c0 + l * G``), with BN folded:
   of its two strip kernels, kept as they are (the TPU's VMEM budget, its
   16-column tiling and the dtype's bytes) so that the port runs K2 and K5 on
   exactly the blocks where the JAX model runs its strip kernels, and
-  :func:`eligible` adds the CUDA kernels' own limits (``growth <=
-  MAX_GROWTH``, ``K <= MAX_BOTTLENECK``). A block past them runs the plain
-  loop, by shape. That is a gap, not a match: JAX runs its strip kernels on
-  DenseNet-161's blocks 1 and 2 (growth 48, K 192) at 1280x1920, and the
-  port's layer body does not take that width yet (open kernel work,
-  ``ROADMAP.md`` section 2).
+  :func:`eligible` adds the CUDA kernels' own limits (:func:`within_limits`:
+  ``growth <= MAX_GROWTH``, ``K <= MAX_BOTTLENECK``), which every DenseNet
+  of the repo meets: DenseNet-121, -169 and -201 (growth 32, K 128) in the
+  layer bodies' narrow layout, DenseNet-161 (growth 48, K 192) in the wide
+  one (``LAYOUTS``). A block past them runs the plain loop, by shape.
 
 For a CUDA tensor the wrappers launch their kernel (or raise); for a CPU
 tensor they run the plain version. All take ``x`` as ``(B, H, W, c0)`` NHWC
@@ -52,17 +51,21 @@ from .fused import _DTYPE_CODES, LaunchCount
 K2_LAUNCHES = LaunchCount()
 K5_LAUNCHES = LaunchCount()
 
-# the kernels' shared-memory plan (csrc/dense_layer_tile.cuh: kKMax, kGMax)
-MAX_BOTTLENECK = 128
-MAX_GROWTH = 32
-# The blocks of a layer body an SM holds: the tensor-core body
-# (csrc/dense_layer_mma.cuh, bf16) two, the CUDA-core body
-# (csrc/dense_layer_tile.cuh, f32) one
-BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
-# K2's bf16 layer kernel (csrc/dense_block_strip.cu): its tile, the blocks
-# of it an SM holds, and the prefix channels of a chunk
+# The layer bodies' padded (K, G) layouts, narrowest first
+# (csrc/dense_layer_tile.cuh: kLayoutK, kLayoutG): a block runs in the
+# narrowest that holds its K and growth, and nothing runs past the widest.
+# (128, 32) holds DenseNet-121, -169 and -201, (192, 48) DenseNet-161.
+LAYOUTS = ((128, 32), (192, 48))
+MAX_BOTTLENECK, MAX_GROWTH = LAYOUTS[-1]
+# The blocks of a layer body at K5's and K2's 8x16 tile an SM holds, by
+# layout and dtype: the tensor-core body (csrc/dense_layer_mma.cuh, bf16)
+# two at (128, 32) (97 KB of shared memory) and one at (192, 48) (154 KB),
+# the CUDA-core body (csrc/dense_layer_tile.cuh, f32) one (132 / 173 KB)
+BLOCKS_PER_SM = {(128, 32): {torch.bfloat16: 2, torch.float32: 1},
+                 (192, 48): {torch.bfloat16: 1, torch.float32: 1}}
+# K2's bf16 layer kernel (csrc/dense_block_strip.cu): its tile and the
+# prefix channels of a chunk
 LAYER_TILE = (8, 16)
-LAYER_BLOCKS_PER_SM = BLOCKS_PER_SM[torch.bfloat16]
 LAYER_CHUNK = 32
 # K5's output tile (csrc/dense_block_recompute.cu: kTH, kTW), K2's
 TILE_ROWS, TILE_COLS = LAYER_TILE
@@ -168,9 +171,21 @@ def pick_rs(h, num_layers, w, c0, growth, k, dtype_bytes=2):
     return None
 
 
+def layout(growth, k):
+    """The layer bodies' padded ``(K, G)`` for a block of bottleneck ``k``
+    and ``growth``: the first of ``LAYOUTS`` that holds both. Raises past the
+    widest."""
+    for kp, gp in LAYOUTS:
+        if k <= kp and growth <= gp:
+            return kp, gp
+    raise ValueError(f"the kernels take K <= {MAX_BOTTLENECK} and growth <= {MAX_GROWTH}, "
+                     f"got K={k}, growth={growth}")
+
+
 def within_limits(growth, bn_size):
-    """Whether the layer bodies of K2, K4 and K5 take the block: ``growth <=
-    MAX_GROWTH`` and ``K = bn_size * growth <= MAX_BOTTLENECK``."""
+    """Whether the layer bodies of K2, K4 and K5 take the block (some layout
+    holds it): ``growth <= MAX_GROWTH`` and ``K = bn_size * growth <=
+    MAX_BOTTLENECK``."""
     return growth <= MAX_GROWTH and bn_size * growth <= MAX_BOTTLENECK
 
 
@@ -191,7 +206,8 @@ def eligible(batch, h, w, c0, growth, num_layers, bn_size, dtype_bytes=2, carry=
 
 def plan_strips(h, w, num_layers, sms, blocks_per_sm):
     """K5's geometry on a card of ``sms`` SMs whose layer body fits
-    ``blocks_per_sm`` blocks an SM (``BLOCKS_PER_SM`` of the dtype):
+    ``blocks_per_sm`` blocks an SM (``BLOCKS_PER_SM`` of the layout and
+    dtype):
     ``(rows, strips, blocks)``.
 
     Two strips of ``ceil(h / 2)`` rows rounded up to the tile's 8 (one strip
@@ -211,46 +227,52 @@ def plan_strips(h, w, num_layers, sms, blocks_per_sm):
 
 
 def pack_layer_weights(folded):
-    """The bf16 kernels' (K2, K4, K5) w1 and w3 from ``folded``'s: ``w1``
-    ``(L, C_max, K)`` -> ``(L, cp, 128)`` with ``cp`` = C_max rounded up to
-    ``LAYER_CHUNK``, ``w3`` ``(L, 3, 3, K, G)`` -> ``(L, 9, 128, 32)``, in
+    """The bf16 kernels' (K2, K4, K5) w1 and w3 from ``folded``'s, in the
+    layout ``(KP, GP)`` of the block (:func:`layout`): ``w1`` ``(L, C_max,
+    K)`` -> ``(L, cp, KP)`` with ``cp`` = C_max rounded up to
+    ``LAYER_CHUNK``, ``w3`` ``(L, 3, 3, K, G)`` -> ``(L, 9, KP, GP)``, in
     bf16 with zeros in the padding: every chunk of 32 rows is in bounds, and
-    K and G are the tensor-core tiles' multiples."""
+    K and G are the tensor-core tiles' multiples. DenseNet-121's blocks pack
+    to ``(L, cp, 128)`` and ``(L, 9, 128, 32)``, DenseNet-161's to ``(L, cp,
+    192)`` and ``(L, 9, 192, 48)``. Raises past the widest layout."""
     w1, w3 = folded["w1"], folded["w3"]
     n, c_max, k = w1.shape
     growth = w3.shape[-1]
+    kp, gp = layout(growth, k)
     cp = -(-c_max // LAYER_CHUNK) * LAYER_CHUNK
-    w1p = w1.new_zeros(n, cp, MAX_BOTTLENECK)
+    w1p = w1.new_zeros(n, cp, kp)
     w1p[:, :c_max, :k] = w1
-    w3p = w3.new_zeros(n, 9, MAX_BOTTLENECK, MAX_GROWTH)
+    w3p = w3.new_zeros(n, 9, kp, gp)
     w3p[:, :, :k, :growth] = w3.reshape(n, 9, k, growth)
     return w1p.to(torch.bfloat16), w3p.to(torch.bfloat16)
 
 
-def layer_plan(h, w, sms):
+def layer_plan(h, w, sms, growth=32, k=128):
     """K2's bf16 launch plan for an ``h`` x ``w`` plane on a card of ``sms``
-    SMs: ``(tiles, waves)``, its 8x16 tiles a layer and their waves of
-    ``LAYER_BLOCKS_PER_SM`` blocks on each SM."""
+    SMs: ``(tiles, waves)``, its 8x16 tiles a layer and their waves of the
+    blocks of the layout of ``(k, growth)`` an SM holds (``BLOCKS_PER_SM``)
+    on each SM."""
     rows, cols = LAYER_TILE
     tiles = -(-h // rows) * -(-w // cols)
-    return tiles, tiles / (sms * LAYER_BLOCKS_PER_SM)
+    return tiles, tiles / (sms * BLOCKS_PER_SM[layout(growth, k)][torch.bfloat16])
 
 
 def dense_block_strip(x, folded, packed=None):
     """K2: the dense block of ``folded`` on ``x`` (see the module docstring).
 
     On a CUDA device ``x`` must be a contiguous NHWC tensor in float32 or
-    bfloat16 and ``K <= 128``, ``G <= 32``; the kernels launch on the current
-    stream and a failure raises. On the CPU the plain version runs.
+    bfloat16 and ``K <= 192``, ``G <= 48`` (``MAX_BOTTLENECK``,
+    ``MAX_GROWTH``); the kernels launch on the current stream and a failure
+    raises. On the CPU the plain version runs.
     """
     return run_block_kernel(x, folded, "dmm_dense_block_strip", K2_LAUNCHES, packed)
 
 
 def _check_packed(folded, packed):
     """Raise unless ``packed`` is ``pack_layer_weights(folded)``'s layout."""
-    n, c_max, _ = folded["w1"].shape
-    want = ((n, -(-c_max // LAYER_CHUNK) * LAYER_CHUNK, MAX_BOTTLENECK),
-            (n, 9, MAX_BOTTLENECK, MAX_GROWTH))
+    n, c_max, k = folded["w1"].shape
+    kp, gp = layout(folded["w3"].shape[-1], k)
+    want = ((n, -(-c_max // LAYER_CHUNK) * LAYER_CHUNK, kp), (n, 9, kp, gp))
     for name, t, shape in zip(("w1", "w3"), packed, want):
         if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
                 or t.device != folded["w1"].device or not t.is_contiguous()):
@@ -276,7 +298,8 @@ def _recompute_scratch(x, num_layers, c0, growth, k, c_max):
     the grid, planned for ``x``'s card and dtype."""
     _, h, w, _ = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, strips, blocks = plan_strips(h, w, num_layers, sms, BLOCKS_PER_SM[x.dtype])
+    per_sm = BLOCKS_PER_SM[layout(growth, k)][x.dtype]
+    rows, strips, blocks = plan_strips(h, w, num_layers, sms, per_sm)
     halo = torch.empty((strips, 2 * num_layers, w, c_max), dtype=x.dtype, device=x.device)
     arrive = torch.empty(strips, dtype=torch.int32, device=x.device)
     return halo, arrive, rows, blocks
@@ -299,9 +322,7 @@ def run_block_kernel(x, folded, entry, count, packed=None, scratch=None):
         raise ValueError(f"no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
-    if k > MAX_BOTTLENECK or growth > MAX_GROWTH:
-        raise ValueError(f"the kernel takes K <= {MAX_BOTTLENECK} and growth <= "
-                         f"{MAX_GROWTH}, got K={k}, growth={growth}")
+    layout(growth, k)                       # raises past the widest layout
 
     from . import _build
 

@@ -96,17 +96,21 @@ def _unpack_layer_weights(w1p, w3p, c_max, k, growth):
             w3p.float()[:, :, :k, :growth].reshape(n, 3, 3, k, growth))
 
 
-@pytest.mark.parametrize("L,c0,growth", [(3, 12, 8), (4, 40, 12), (6, 64, 32)])
+@pytest.mark.parametrize("L,c0,growth", [(3, 12, 8), (4, 40, 12), (6, 64, 32), (2, 48, 48)])
 def test_pack_layer_weights_unpacks_to_fold(L, c0, growth):
     """K2's bf16 layouts hold fold_block_params's w1 and w3 rounded to bf16,
-    with zeros in every padding (K to 128, G to 32, rows to 32)."""
+    with zeros in every padding (rows to 32; K and G to 128 and 32 up to
+    growth 32, as DenseNet-121's blocks pack, else to 192 and 48, as
+    DenseNet-161's growth 48 does)."""
     _, variables, _ = _jax_block(L, c0, growth, 4, 4, seed=11)
     folded = fold_block_params(_port_block(variables, L, c0, growth))
     k, c_max = 4 * growth, c0 + L * growth
+    kp, gp = (128, 32) if growth <= 32 else (192, 48)
+    assert k2.layout(growth, k) == (kp, gp)
     w1p, w3p = k2.pack_layer_weights(folded)
     assert w1p.dtype == w3p.dtype == torch.bfloat16
-    assert tuple(w1p.shape) == (L, -(-c_max // 32) * 32, 128)
-    assert tuple(w3p.shape) == (L, 9, 128, 32)
+    assert tuple(w1p.shape) == (L, -(-c_max // 32) * 32, kp)
+    assert tuple(w3p.shape) == (L, 9, kp, gp)
     w1, w3 = _unpack_layer_weights(w1p, w3p, c_max, k, growth)
     for name, got in (("w1", w1), ("w3", w3)):
         want = folded[name].to(torch.bfloat16).float()
@@ -120,12 +124,15 @@ def test_pack_layer_weights_unpacks_to_fold(L, c0, growth):
 
 
 def test_layer_plan():
-    """K2's bf16 wave plan on 132 SMs at two blocks each: 8x16 tiles, 1200
-    a layer at block 1 of the 1280x1920 frame, 300 (1.14 waves) at block 2,
-    the ragged edge counted."""
+    """K2's bf16 wave plan on 132 SMs: 8x16 tiles, 1200 a layer at block 1
+    of the 1280x1920 frame, 300 at block 2, the ragged edge counted; two
+    blocks an SM in the narrow layout (300 tiles are 1.14 waves), one in
+    the wide (DenseNet-161's growth 48: 2.27 waves)."""
     assert k2.layer_plan(320, 480, 132) == (1200, 1200 / 264)
     assert k2.layer_plan(160, 240, 132) == (300, 300 / 264)
     assert k2.layer_plan(37, 53, 132) == (20, 20 / 264)
+    assert k2.layer_plan(320, 480, 132, growth=48, k=192) == (1200, 1200 / 132)
+    assert k2.layer_plan(160, 240, 132, growth=48, k=192) == (300, 300 / 132)
 
 
 @pytest.mark.parametrize("L,c0,growth,h,w,rs", [
@@ -133,6 +140,7 @@ def test_layer_plan():
     (3, 16, 8, 8, 16, 8),      # one strip and the trailing flush step
     (6, 16, 16, 24, 8, 8),     # rs == L + 2
     (3, 16, 8, 32, 16, None),  # rs picked by pick_rs_carry
+    (2, 48, 48, 16, 16, 8),    # DenseNet-161's growth 48 (K 192): the wide layout
 ])
 def test_plain_version_matches_jax_carry_kernel(L, c0, growth, h, w, rs):
     _, variables, x = _jax_block(L, c0, growth, h, w, seed=3)

@@ -60,6 +60,7 @@ def _torch(folded):
     (2, 8, 16, 3, 16, 8, 1),    # one image per program
     (4, 4, 8, 3, 16, 8, 4),     # four images packed into one program
     (8, 8, 12, 2, 8, 16, 4),    # two programs of four packed images
+    (1, 8, 16, 2, 48, 48, 1),   # DenseNet-161's growth 48 (K 192): the wide layout
 ])
 def test_plain_version_matches_jax_pallas_kernel(batch, h, w, L, c0, growth, group):
     rng = np.random.default_rng(batch * 10 + h)
@@ -80,12 +81,12 @@ def test_eligibility_matches_jax(dtype_bytes):
     shapes = DENSENET121_BLOCKS + [(8, 16, 16, 3), (4, 8, 16, 3), (10, 10, 64, 6),
                                    (16, 24, 12, 4), (320, 480, 64, 6)]
     for h, w, c0, L in shapes:
-        for batch in (1, 2, 4, 8, 16, 32, 256):
-            kwargs = dict(num_layers=L, c0=c0, growth=32, bn_size=4)
+        for batch, growth in ((b, g) for b in (1, 2, 4, 8, 16, 32, 256) for g in (32, 48)):
+            kwargs = dict(num_layers=L, c0=c0, growth=growth, bn_size=4)
             assert k4.pick_group(batch, h, w, dtype_bytes, **kwargs) == \
                 jax_k4.pick_group(batch, h, w, dtype_bytes, **kwargs), (h, w, c0, L, batch)
-            assert k4.eligible(L, c0, 32, 4, h, w, dtype_bytes, batch=batch) == \
-                jax_k4.eligible(L, c0, 32, 4, h, w, dtype_bytes, batch=batch)
+            assert k4.eligible(L, c0, growth, 4, h, w, dtype_bytes, batch=batch) == \
+                jax_k4.eligible(L, c0, growth, 4, h, w, dtype_bytes, batch=batch)
 
 
 def test_densenet121_blocks_that_run_k4_at_128x192():
@@ -103,16 +104,19 @@ def test_densenet121_blocks_that_run_k4_at_128x192():
     (24, 256, 32),     # DenseNet-121 block 3 (C_max 1024)
     (16, 512, 32),     # DenseNet-121 block 4 (C_max 1024)
     (1, 40, 12),       # one layer, K 48, G 12
+    (6, 96, 48),       # DenseNet-161 block 1 (C_max 384): the wide layout
 ])
 def test_pack_layer_weights_at_k4_shapes(L, c0, growth):
     """The bf16 kernels' packed w1 and w3 at K4's shapes unpack to the fold
-    rounded to bf16, with zeros in every padding."""
+    rounded to bf16, with zeros in every padding: K and G to 128 and 32
+    (DenseNet-121's layout) up to growth 32, else to 192 and 48."""
     rng = np.random.default_rng(L * 1000 + c0)
     k, c_max = 4 * growth, c0 + L * growth
+    kp, gp = (128, 32) if growth <= 32 else (192, 48)
     folded = _torch(_folded(rng, L, c0, growth, k))
     w1p, w3p = pack_layer_weights(folded)
-    assert tuple(w1p.shape) == (L, -(-c_max // 32) * 32, 128)
-    assert tuple(w3p.shape) == (L, 9, 128, 32)
+    assert tuple(w1p.shape) == (L, -(-c_max // 32) * 32, kp)
+    assert tuple(w3p.shape) == (L, 9, kp, gp)
     assert w1p.dtype == w3p.dtype == torch.bfloat16
     torch.testing.assert_close(w1p[:, :c_max, :k].float(),
                                folded["w1"].to(torch.bfloat16).float(), atol=0, rtol=0)
@@ -154,6 +158,37 @@ def test_block_plan_at_densenet121_planes(hw):
     assert (m1 - 1) * 16 < (tile[0] + 2) * (tile[1] + 2) <= m1 * 16
     if tile == (8, 16):
         assert plan.warps == tuple(((w, 0), (w, 1)) for w in range(8))
+
+
+# K4's plan for DenseNet-161's blocks 1 and 2 at 128x192 (growth 48, the
+# wide layout): the same tiles and clusters as DenseNet-121's planes, three
+# n8 pairs of G a tile, and one block an SM at 8x16 and 8x12
+DENSENET161_PLANS = {
+    (32, 48): ((8, 16), 12, 12, 8, 24, 3, 158016, (6, 6, 4, 1)),
+    (16, 24): ((8, 12), 4, 9, 6, 18, 3, 142016, (4, 4, 4, 1)),
+}
+
+
+@pytest.mark.parametrize("hw", list(DENSENET161_PLANS))
+def test_block_plan_at_densenet161_planes(hw):
+    """At growth 48 each warp runs the three n8 pairs of one m16 tile (8x16:
+    24 units on 8 warps; 8x12: 18 on warps 0-5), the units cover every (m16
+    tile, n8 pair) once, and the wide body's shared memory fits one block
+    an SM; a 4x6 tile deals its 6 units one a warp."""
+    tile, tiles, m1, m3, units, per_warp, smem, clusters = DENSENET161_PLANS[hw]
+    for batch, cluster in zip((1, 8, 32, 256), clusters):
+        plan = k4.block_plan(batch, *hw, 132, growth=48, k=192)
+        assert plan.c_fields() == (*tile, tiles, cluster, m1, m3, units, per_warp, smem)
+    assert smem + 1024 <= 228 * 1024 < 2 * (smem + 1024)
+    dealt = [u for warp in plan.warps for u in warp]
+    assert sorted(dealt) == [(m, n) for m in range(m3) for n in range(3)]
+    assert all(len({m for m, _ in warp}) <= 1 for warp in plan.warps)
+    small = k4.block_plan(32, 4, 6, 132, growth=48, k=192)
+    assert (small.units, small.warp_units) == (6, 1)
+    assert small.warps == (((0, 0),), ((0, 1),), ((0, 2),), ((1, 0),), ((1, 1),), ((1, 2),),
+                           (), ())
+    assert k4.block_plan(32, 4, 6, 132).c_fields() == k4.block_plan(
+        32, 4, 6, 132, growth=32, k=128).c_fields()
 
 
 def test_block_plan_picks_the_least_padded_halo_work():

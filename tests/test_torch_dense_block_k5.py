@@ -63,7 +63,7 @@ GATE_SHAPES = [(320, 480, 64, 6), (160, 240, 128, 12), (80, 120, 256, 24),
 @pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
 def test_strip_gate_matches_jax(dtype_bytes, carry):
     for h, w, c0, L in GATE_SHAPES:
-        for growth in (32, 8):
+        for growth in (48, 32, 8):
             args = (h, L, w, c0, growth, 4 * growth, dtype_bytes)
             assert k5.pick_rs(*args) == jax_strip.pick_rs(*args), (h, w, c0, L)
             assert k5.pick_rs_carry(*args) == jax_strip.pick_rs_carry(*args), (h, w, c0, L)
@@ -88,6 +88,7 @@ def test_full_resolution_blocks_take_both_strip_kernels():
     (3, 16, 8, 32, 16, 8),     # several strips, halo = 3
     (3, 16, 8, 8, 16, 8),      # a single strip (clamped halo both sides)
     (6, 16, 16, 24, 8, 8),     # L close to rs
+    (2, 48, 48, 16, 16, 8),    # DenseNet-161's growth 48 (K 192): the wide layout
 ])
 def test_plain_version_matches_jax_strip_kernel(L, c0, growth, h, w, rs):
     rng = np.random.default_rng(L * 100 + h)
@@ -107,27 +108,36 @@ def test_plain_version_matches_jax_strip_kernel(L, c0, growth, h, w, rs):
 ])
 @pytest.mark.parametrize("sms", [132, 114, 8])
 def test_strip_plan(h, w, L, sms):
-    """For the bf16 body's two blocks an SM and the f32 body's one: heights
-    are multiples of the tile's 8 rows and cover the plane; a plane of more
-    than one tile row gets at least two strips; every strip has a block and
-    no SM more than its body holds; the rows and strips do not depend on
-    the body; at the 1280x1920 blocks every slot has a block."""
+    """For each layer body's blocks an SM (the bf16 body two in the narrow
+    layout and one in the wide, the f32 body one): heights are multiples of
+    the tile's 8 rows and cover the plane; a plane of more than one tile row
+    gets at least two strips; every strip has a block and no SM more than
+    its body holds; the rows and strips do not depend on the body; at the
+    1280x1920 blocks every slot has a block."""
     plans = {}
-    for dtype, per_sm in k5.BLOCKS_PER_SM.items():
-        rows, strips, blocks = plans[dtype] = k5.plan_strips(h, w, L, sms, per_sm)
-        assert rows % k5.TILE_ROWS == 0 and strips == -(-h // rows)
-        assert (strips >= 2) == (h > k5.TILE_ROWS)
-        assert strips <= blocks <= sms * per_sm
-        if (h, w) in ((320, 480), (160, 240)):
-            assert blocks == sms * per_sm
-    assert plans[torch.bfloat16][:2] == plans[torch.float32][:2]
-    assert plans[torch.bfloat16][2] >= plans[torch.float32][2]
+    for layout, per_dtype in k5.BLOCKS_PER_SM.items():
+        for dtype, per_sm in per_dtype.items():
+            rows, strips, blocks = plans[layout, dtype] = k5.plan_strips(h, w, L, sms,
+                                                                         per_sm)
+            assert rows % k5.TILE_ROWS == 0 and strips == -(-h // rows)
+            assert (strips >= 2) == (h > k5.TILE_ROWS)
+            assert strips <= blocks <= sms * per_sm
+            if (h, w) in ((320, 480), (160, 240)):
+                assert blocks == sms * per_sm
+    assert len({plan[:2] for plan in plans.values()}) == 1
+    narrow, wide = k5.LAYOUTS
+    assert plans[narrow, torch.bfloat16][2] >= plans[narrow, torch.float32][2]
+    assert plans[wide, torch.bfloat16][2] == plans[wide, torch.float32][2]
 
 
 def test_strip_plan_at_the_full_resolution_blocks():
     """On a 132-SM H100: two strips of 160 rows at block 1 and of 80 at
-    block 2, 132 blocks each in bf16 (two an SM), 66 in f32."""
-    assert k5.BLOCKS_PER_SM == {torch.bfloat16: 2, torch.float32: 1}
+    block 2, 132 blocks each in bf16 in the narrow layout (two an SM), 66 in
+    f32 and in the wide layout (DenseNet-161: the bf16 body's 154 KB of
+    shared memory fit one block an SM), which the cooperative launch must
+    hold at once."""
+    assert k5.BLOCKS_PER_SM == {(128, 32): {torch.bfloat16: 2, torch.float32: 1},
+                                (192, 48): {torch.bfloat16: 1, torch.float32: 1}}
     assert k5.plan_strips(320, 480, 6, 132, 2) == (160, 2, 264)
     assert k5.plan_strips(160, 240, 12, 132, 2) == (80, 2, 264)
     assert k5.plan_strips(320, 480, 6, 132, 1) == (160, 2, 132)

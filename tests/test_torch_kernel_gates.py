@@ -2,16 +2,18 @@
 (``dmmfods_tpu_torch/ops/dense_block_strip.py::eligible``,
 ``ops/dense_block.py::eligible``, ``models/dense_unet_lidar.py::Head``).
 
-JAX's gates take DenseNet-161's blocks (growth 48, so K = 192) and head
-(c_mid 96); the CUDA kernels take growth <= 32, K <= 128 and c_mid <= 64.
-So the port's gates refuse those shapes and the plain loop or head runs
-there, chosen by shape, while every decision on DenseNet-121 stays JAX's.
-That is an open gap, not a match: with ``kernel_limits=False`` each gate
-gives JAX's decision alone, which these tests hold against the JAX
-package's own gates, so the gap stays visible until the kernels widen.
-On the CPU the kernels' wrappers run their plain versions, so a growth-48
-block is held against the plain loop bit for bit, with the wrappers spied
-on to show they are not called."""
+The layer body of K2, K4 and K5 takes growth <= 48 and K <= 192, in two
+padded layouts: (K 128, G 32) for DenseNet-121, -169 and -201, (K 192, G
+48) for DenseNet-161 (``ops/dense_block_strip.py::LAYOUTS``). So on every
+DenseNet-161 dense block the port's strip and K4 gates give JAX's decision,
+held here against the JAX package's own gates in bf16 and f32, every
+DenseNet-121 decision stays JAX's, and growth 64 (K 256) is refused by
+shape: the plain loop runs there. K3 is narrower (c_mid <= 64): the port's
+head gate refuses DenseNet-161's head (c_mid 96), which JAX's takes, and
+``kernel_limits=False`` gives JAX's decision alone, so that gap stays
+visible. On the CPU the kernels' wrappers run their plain versions, so an
+eval growth-48 block is held against the model's plain loop, with the
+wrappers spied on to show they are called."""
 
 import pytest
 import torch
@@ -24,9 +26,14 @@ from dmmfods_tpu_torch.ops import dense_block_strip as k2
 from dmmfods_tpu_torch.ops.phase_head import MAX_MID, MAX_SOURCE_BF16
 
 BN_SIZE = 4
-# 1280x1920 at batch 1, mid fusion before block 3: blocks 1 and 2 of both
-# streams (h, w, c0, layers)
-DENSENET161_STRIP = {"block1": (320, 480, 96, 6), "block2": (160, 240, 192, 12)}
+# 1280x1920 at batch 1: DenseNet-161's four dense blocks (h, w, c0, layers)
+# and those of JAX's strip gates take in (bf16, f32): both kernels blocks 1
+# and 2 in bf16; in f32 the carry kernel (K2) both, the recompute kernel
+# (K5) block 1 only; none blocks 3 and 4
+DENSENET161_STRIP = {"block1": (320, 480, 96, 6), "block2": (160, 240, 192, 12),
+                     "block3": (80, 120, 384, 36), "block4": (40, 60, 1056, 24)}
+DENSENET161_STRIP_TAKEN = {True: {2: ("block1", "block2"), 4: ("block1", "block2")},
+                           False: {2: ("block1", "block2"), 4: ("block1",)}}
 DENSENET121_STRIP = {"block1": (320, 480, 64, 6), "block2": (160, 240, 128, 12)}
 # 128x192 blocks (h, w, c0, layers) and the batches JAX's sample-group rule
 # takes each at in bf16, of (1, 8, 32, 256)
@@ -34,23 +41,29 @@ DENSENET121_K4 = {"block1": ((32, 48, 64, 6), (1, 8, 32, 256)),
                   "block2": ((16, 24, 128, 12), (1, 8, 32, 256)),
                   "block3": ((8, 12, 256, 24), (8, 32, 256)),
                   "block4": ((4, 6, 512, 16), (32, 256))}
+# DenseNet-161's at 128x192: JAX's rule takes blocks 1 and 2 at every batch
+# in bf16 and f32, blocks 3 and 4 at none
+DENSENET161_K4 = {"block1": ((32, 48, 96, 6), (1, 8, 32, 256)),
+                  "block2": ((16, 24, 192, 12), (1, 8, 32, 256)),
+                  "block3": ((8, 12, 384, 36), ()), "block4": ((4, 6, 1056, 24), ())}
 
 
 @pytest.mark.parametrize("carry", [True, False])
 @pytest.mark.parametrize("block", list(DENSENET161_STRIP))
 def test_strip_gate_refuses_densenet161(block, carry):
+    """The strip gate on a DenseNet-161 block at 1280x1920 refuses it where
+    JAX's refuses it and takes it where JAX's takes it, in bf16 and f32:
+    growth 48 and K 192 are within the kernels' limits."""
     h, w, c0, layers = DENSENET161_STRIP[block]
-    assert not k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, 2, carry=carry)
-    assert not k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, 4, carry=carry)
-    # JAX's own gate takes it (the gap): the limits refuse it
-    assert not k2.within_limits(48, BN_SIZE)
-    assert (k2.pick_rs_carry if carry else k2.pick_rs)(
-        h, layers, w, c0, 48, BN_SIZE * 48) is not None
-    assert k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, 2, carry=carry, kernel_limits=False)
+    assert k2.within_limits(48, BN_SIZE)
+    assert k2.layout(48, BN_SIZE * 48) == (192, 48)
     for dtype_bytes in (2, 4):
-        assert k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, dtype_bytes, carry=carry,
-                           kernel_limits=False) == jax_k2.eligible(
-            1, h, w, c0, 48, layers, BN_SIZE, dtype_bytes, carry=carry)
+        want = block in DENSENET161_STRIP_TAKEN[carry][dtype_bytes]
+        got = k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, dtype_bytes, carry=carry)
+        assert got == jax_k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, dtype_bytes,
+                                      carry=carry) == want, (block, dtype_bytes)
+        assert got == k2.eligible(1, h, w, c0, 48, layers, BN_SIZE, dtype_bytes, carry=carry,
+                                  kernel_limits=False)
 
 
 @pytest.mark.parametrize("carry", [True, False])
@@ -58,19 +71,47 @@ def test_strip_gate_refuses_densenet161(block, carry):
 def test_strip_gate_still_takes_densenet121(block, carry):
     h, w, c0, layers = DENSENET121_STRIP[block]
     assert k2.eligible(1, h, w, c0, 32, layers, BN_SIZE, 2, carry=carry)
+    assert k2.layout(32, BN_SIZE * 32) == (128, 32)
 
 
 def test_k4_gate_refuses_densenet161_and_keeps_densenet121():
-    assert k4.pick_group(32, 32, 48, 2, num_layers=6, c0=96, growth=48,
-                         bn_size=BN_SIZE) is not None
-    assert not k4.eligible(6, 96, 48, BN_SIZE, 32, 48, 2, batch=32)
-    # JAX's gate takes it (the gap)
-    assert k4.eligible(6, 96, 48, BN_SIZE, 32, 48, 2, batch=32, kernel_limits=False)
-    assert jax_k4.eligible(6, 96, 48, BN_SIZE, 32, 48, 2, batch=32)
+    """K4's gate at 128x192: on DenseNet-161's blocks it gives JAX's
+    decision at b1, b8, b32 and b256 in bf16 and f32 (blocks 1 and 2 taken,
+    3 and 4 refused); DenseNet-121's decisions are unchanged."""
+    for name, ((h, w, c0, layers), batches) in DENSENET161_K4.items():
+        for dtype_bytes in (2, 4):
+            for batch in (1, 8, 32, 256):
+                got = k4.eligible(layers, c0, 48, BN_SIZE, h, w, dtype_bytes, batch=batch)
+                assert got == jax_k4.eligible(layers, c0, 48, BN_SIZE, h, w, dtype_bytes,
+                                              batch=batch) == (batch in batches), (
+                    name, dtype_bytes, batch)
     for name, ((h, w, c0, layers), batches) in DENSENET121_K4.items():
         for batch in (1, 8, 32, 256):
             assert k4.eligible(layers, c0, 32, BN_SIZE, h, w, 2, batch=batch) == (
                 batch in batches), (name, batch)
+
+
+@pytest.mark.parametrize("gate", ["strip", "k4"])
+def test_growth64_is_refused(gate):
+    """Growth 64 (K 256) is past the widest layout: the port's gate refuses
+    a block JAX's takes, and the bf16 packing raises."""
+    assert not k2.within_limits(64, BN_SIZE)
+    with pytest.raises(ValueError):
+        k2.layout(64, 256)
+    assert k2.within_limits(48, 4) and not k2.within_limits(48, 5)   # K 240
+    if gate == "strip":
+        h, w, c0, layers = 320, 480, 64, 6
+        assert jax_k2.eligible(1, h, w, c0, 64, layers, BN_SIZE, 2, carry=True)
+        assert not k2.eligible(1, h, w, c0, 64, layers, BN_SIZE, 2, carry=True)
+        assert k2.eligible(1, h, w, c0, 64, layers, BN_SIZE, 2, carry=True,
+                           kernel_limits=False)
+    else:
+        h, w, c0, layers = 32, 48, 64, 6
+        assert jax_k4.eligible(layers, c0, 64, BN_SIZE, h, w, 2, batch=8)
+        assert not k4.eligible(layers, c0, 64, BN_SIZE, h, w, 2, batch=8)
+    folded = {"w1": torch.zeros(2, 64 + 2 * 64, 256), "w3": torch.zeros(2, 3, 3, 256, 64)}
+    with pytest.raises(ValueError):
+        k2.pack_layer_weights(folded)
 
 
 def _spy(monkeypatch, name, calls):
@@ -87,8 +128,11 @@ def _spy(monkeypatch, name, calls):
 def test_growth48_eval_block_runs_the_plain_loop(monkeypatch, path):
     """An eval growth-48 block at a shape JAX's gate takes (K4: 1x8x16,
     one 128-pixel sample group; strip: a batch-1 plane with the strip
-    threshold lowered to it) equals the plain loop bit for bit and calls no
-    kernel wrapper."""
+    threshold lowered to it) calls its kernel's wrapper (``dense_block``,
+    ``dense_block_strip``), whose plain version runs on the CPU, and equals
+    the model's plain loop (atol 5e-4, the dispatch tests' tolerance for
+    BN folded into the kernels' stacks); its packed pair is the wide
+    layout's."""
     layers, c0, growth = 2, 16, 48
     h, w = 8, 16
     block = pm.DenseBlock(layers, c0, BN_SIZE, growth, 0.0,
@@ -108,9 +152,11 @@ def test_growth48_eval_block_runs_the_plain_loop(monkeypatch, path):
         want = x
         for layer in block.children():
             want = torch.cat([want, layer(want)], dim=1)
-    assert calls == []
+    assert calls == ["dense_block" if path == "k4" else "dense_block_strip"]
     assert got.shape == (1, c0 + layers * growth, h, w)
-    assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+    w1p, w3p = block._kernel_operands()[1]
+    assert tuple(w1p.shape) == (layers, 128, 192) and tuple(w3p.shape) == (layers, 9, 192, 48)
 
 
 def _meta(*shape, dtype=torch.bfloat16):
