@@ -13,9 +13,11 @@ exit code:
    nvcc per source, in parallel) and prints the build time and ptxas's
    registers and spills of each kernel instantiation, with the dynamic
    shared memory of the tensor-core kernels (the bf16 bodies of K1, K2, K3,
-   K4, K5 and K6, K1's at each N slice, K6's at each channel count 1-8, and
+   K4, K5 and K6, K1's at each N slice, K6's at each channel count 1-8,
    K2's, K4's and K5's in each (K, G) layout of the layer bodies, (128, 32)
-   and (192, 48), K4's at each tile); fails if any instantiation spills.
+   and (192, 48), K4's at each tile, and K3's in each layout, narrow and
+   wide, with its f32 body at c_mid 64 and 96); fails if any instantiation
+   spills.
 3. K1 (the fused concat+BN+ReLU+1x1 kernel) against its plain PyTorch
    version: in bf16 on operands folded and packed beforehand
    (``fuse_operands``) at the 128x192 serving shape (16x24 pixels, 128/128
@@ -37,9 +39,13 @@ exit code:
    bf16 (there against K2 bit for bit too) at a ragged shape whose last
    strip is short, at a plane that is a single strip, at a block deeper
    than its strips and at the wide ragged shapes; growth 64 (K 256)
-   refused by each wrapper and each C entry; K3 (the head) at the
+   refused by each wrapper and each C entry; K3 (the head) at DenseNet-121's
    1280x1920 shape and at two ragged shapes (c_mid 20 and 3 classes, 64 and
-   8) in bf16 and at a ragged shape in f32;
+   8) in bf16 and at a ragged shape in f32, and in its wide layout at
+   DenseNet-161's 1280x1920 head (c_up 192, c_mid 96: source 208) and at
+   three wide ragged shapes (source 212 with c_mid 90 and 5 classes, source
+   256, c_mid 64 on source 208) in bf16 and f32, c_mid 128 refused by the
+   wrapper and the C entry;
    K4 (the whole-block kernel) at the
    four DenseNet-121 block shapes of 128x192 in bf16, at each batch of the
    opt-in path that runs the block as K4 (``K4_PATH_BATCHES``) and at b256,
@@ -57,8 +63,12 @@ exit code:
    mid-fusion model (random weights from a seed) in bf16 through
    ``InferenceEngine``: warm-up, the worker with four requests, one
    synchronous request, stop. Checks the heat maps, that every device batch
-   went through K1 and none through K2, K3, K4 or K6, K1's output inside a
-   served batch, and the served output against the same weights in f32.
+   went through K1 and none through K2, K3, K4 or K6 (the head runs in
+   phase space, stock PyTorch), K1's output inside a served batch, and the
+   served output against the same weights in f32. Then the last request
+   again through a model with ``gpu.use_fused_kernels = False`` (the plain
+   concat and head): no kernel launched, its heat maps within the bf16
+   bound of the default path's.
 6. Serve at 1280x1920 batch 1 with the default config: DenseNet-121 with
    mid fusion before block 3 (BASELINE.json config 3) in bf16: warm-up, two
    requests through the worker, one synchronous request, stop. Checks the
@@ -102,17 +112,17 @@ exit code:
 14. DenseNet-161 (growth 48: K2, K4 and K5 in the layer bodies' wide
    layout) through ``InferenceEngine``: at 1280x1920 batch 1 with mid
    fusion before block 3, one synchronous request on the default path (K1
-   once, K2 four times, no K3: its c_mid 96 is past K3's limit) and one
-   with ``dense_block_strip = "on"`` (K1 once, K5 four times); at 128x192
+   once, K2 four times, K3 once in its wide layout) and one with
+   ``dense_block_strip = "on"`` (K1 once, K5 four times, K3 once); at 128x192
    with ``dense_block_impl = "pallas"``, one request at b1 and one at b32
    (K1 once, K4 three times: stream 1's blocks 1-2 and stream 2's block 1,
    the blocks JAX's rule takes). Each against the same weights in f32. On
    the default path JAX's gates (``kernel_limits=False``) are counted
    beside the port's on the blocks and head the request ran: K2 4 / K3 1
-   against K2 4 / K3 0. The phase fails if either moves: K3's width is open
-   kernel work (ROADMAP.md section 2).
-15. Time, by CUDA events: the engine's forward with the opt-ins in turns
-   with the default config at b1/b8/b32/b256 at 128x192 and at b1 at
+   both. The phase fails if either moves.
+15. Time, by CUDA events: the engine's forward with the opt-ins and with
+   ``use_fused_kernels = False`` in turns with the default config at
+   b1/b8/b32/b256 at 128x192 (each profiled at b256) and at b1 at
    1280x1920, and the K5 path's forward in turns with the default one, then
    ``torch.profiler`` breakdowns of the device time of the default 1280x1920
    forward, the K5 path's, the opt-in 1280x1920 forward (K6's share of it)
@@ -120,7 +130,12 @@ exit code:
    shape, K2 and K5 at both block shapes (K5 also against K2; K2's packing
    of its bf16 weights timed apart), K3 at the
    1280x1920 shape on weights folded beforehand, with the fold
-   (``kernel_weights``) timed apart, K4 at the four b256 block shapes and K6
+   (``kernel_weights``) timed apart, and at DenseNet-161's head beside its
+   plain version, the model's plain head and the phase-space eval head; the
+   phase-space head's two eval forms of refine1 (four 3x3 convs, the
+   port's, or JAX's one 4x4 conv, held against each other) and the plain
+   head at 128x192 b32 and b256; K4 at the four
+   b256 block shapes and K6
    at 1280x1920 with 3 and with 1 channel and at 128x192 with 3, on weights
    packed beforehand with the packing timed apart, each against its plain
    version in turns; K4 and K6 also
@@ -180,10 +195,13 @@ BOUND_SERVED_VS_F32 = 2e-2
 # The 1280x1920 path's kernel shapes: K2 and K5 per dense block (h, w, c0,
 # layers), DenseNet-121's (growth 32, K 128: the layer bodies' narrow
 # layout) and DenseNet-161's (growth 48, K 192: the wide layout), K3 (hh,
-# hw, c_up, raw channels, c_mid, classes).
+# hw, c_up, raw channels, c_mid, classes), DenseNet-121's head (the bf16
+# body's narrow layout) and DenseNet-161's (c_mid 96, source 208: the wide
+# layout, two passes over the mid channels).
 K2_BLOCKS = {"block1": (320, 480, 64, 6), "block2": (160, 240, 128, 12)}
 K2_BLOCKS_161 = {"block1": (320, 480, 96, 6), "block2": (160, 240, 192, 12)}
 K3_FULL = (640, 960, 128, 4, 64, 3)
+K3_FULL_161 = (640, 960, 192, 4, 96, 3)
 # K4 per DenseNet-121 block at 128x192 (h, w, c0, layers), checked at the
 # batches the opt-in path gives each block (the kernel picks its cluster of
 # blocks per image from the batch: block 2 runs 4-block clusters at b1, b8
@@ -212,6 +230,8 @@ K5_EXTRA = [("ragged", 37, 53, 24, 3, 8, 32), ("single strip", 8, 24, 16, 3, 8, 
 OPT_IN_LAUNCHES = {1: dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=2),
                    8: dict(K1=1, K2=0, K3=0, K4=4, K5=0, K6=0),
                    32: dict(K1=1, K2=0, K3=0, K4=5, K5=0, K6=0)}
+# with gpu.use_fused_kernels = False: the plain concat and head, no kernel
+NO_FUSED_LAUNCHES = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=0)
 # K2's, K4's and K5's plain version, dense_block_strip_reference
 PLAIN_BLOCK = "cuDNN bf16 convs, BN in f32 over each concat prefix"
 # K2's and K3's extra bf16 shapes (name, h, w, c0, layers, growth, K; hh, hw,
@@ -225,6 +245,16 @@ K2_RAGGED_BF16 = [("ragged", 37, 53, 24, 3, 8, 32), ("ragged 2", 21, 35, 40, 4, 
 WIDE_RAGGED = [("wide ragged", 37, 53, 24, 3, 40, 160), ("wide ragged 2", 21, 35, 48, 4, 48, 192),
                ("wide deeper than its strips", 16, 40, 16, 12, 48, 192)]
 K3_RAGGED_BF16 = [(13, 21, 40, 3, 20, 3), (13, 21, 40, 3, 64, 8)]
+# K3's wide-layout shapes besides DenseNet-161's head, in bf16 and f32:
+# source 212 (224 padded) with c_mid 90 and 5 classes on a ragged plane, the
+# widest source (256) at c_mid 96, and c_mid 64 on a source past 192 (the
+# wide layout's padding)
+K3_RAGGED_WIDE = [(13, 21, 200, 3, 90, 5), (9, 17, 240, 4, 96, 3), (13, 21, 192, 4, 64, 3)]
+# The phase-space head's eval forms (refine1 as four 3x3 convs over the
+# phases' slices, ops/phase_head.py's and the model's, and JAX's one 4x4
+# conv over the masked window grid) beside the plain head, at DenseNet-121's
+# 128x192 head (x_lo 64x96, c_up 128, raw 4, c_mid 64) at these batches
+PHASE_HEAD_BATCHES = (32, 256)
 KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
                 "dense_block_recompute_kernel", "concat_bn_relu_conv1x1_mma_kernel",
@@ -279,19 +309,19 @@ RAW_BOXES = 64
 RAW_STEPS = 3
 BOUND_SPLAT = 1e-4
 # DenseNet-161 (growth 48, c_mid 96) at 1280x1920 b1 with mid fusion before
-# block 3: JAX's gates run K2 on blocks 1 and 2 of both streams and K3 once;
-# the port's run the same K2, in the layer bodies' wide layout, and not K3,
-# whose c_mid 96 is past its limit (open kernel work)
+# block 3: JAX's gates run K2 on blocks 1 and 2 of both streams and K3 once,
+# and so do the port's, K2 in the layer bodies' wide layout and K3 in its
+# wide layout
 NUM_PARAMS_DENSENET161_CONFIG3 = 85_911_080
 NUM_PARAMS_DENSENET161 = 83_331_176    # mid fusion before block 2, 128x192
 DENSENET161_JAX_KERNELS = dict(K2=4, K3=1)
-DENSENET161_PORT_KERNELS = dict(K2=4, K3=0)
+DENSENET161_PORT_KERNELS = dict(K2=4, K3=1)
 # its launches per device batch: at 1280x1920 on the default path and with
 # dense_block_strip = "on", and at 128x192 (b1 and b32) with
 # dense_block_impl = "pallas": K4 on stream 1's blocks 1-2 and stream 2's
 # block 1
-DENSENET161_LAUNCHES = {"default": dict(K1=1, K2=4, K3=0, K4=0, K5=0, K6=0),
-                        "K5 path": dict(K1=1, K2=0, K3=0, K4=0, K5=4, K6=0),
+DENSENET161_LAUNCHES = {"default": dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=0),
+                        "K5 path": dict(K1=1, K2=0, K3=1, K4=0, K5=4, K6=0),
                         "K4 path": dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=0)}
 
 
@@ -510,13 +540,13 @@ def _k2_inputs(gen, h, w, c0, layers, growth, k, dtype, device, batch=1):
     return x, {name: t.to(device) for name, t in folded.items()}
 
 
-def _k3_inputs(gen, hh, hw, c_up, rc, c_mid, n_cls, dtype, device):
+def _k3_inputs(gen, hh, hw, c_up, rc, c_mid, n_cls, dtype, device, batch=1):
     """Inputs and folded constants of a random head (weights exact in dtype)."""
     import torch
 
     c_in = c_up + rc
-    x_lo = torch.randn(1, hh, hw, c_up, generator=gen).to(device, dtype)
-    raw = torch.rand(1, 2 * hh, 2 * hw, rc, generator=gen).to(device, dtype)
+    x_lo = torch.randn(batch, hh, hw, c_up, generator=gen).to(device, dtype)
+    raw = torch.rand(batch, 2 * hh, 2 * hw, rc, generator=gen).to(device, dtype)
     consts = dict(
         g0=torch.rand(c_in, generator=gen) + 0.5,
         b0=torch.randn(c_in, generator=gen) * 0.5,
@@ -641,6 +671,9 @@ def _ptxas_report(build_log, lib):
                       + (f", {tile[0]}x{tile[1]}" if tile else "")
                       + (f", K {layout[0]} G {layout[1]}" if layout else "")
                       + (f", C={args[0]}" if name == "stem_pool_mma_kernel" else "")
+                      + (f", source <= {args[0]}, c_mid <= {args[1]} in passes of {args[2]}"
+                         if name == "phase_head_mma_kernel" else "")
+                      + (f", c_mid <= {args[0]}" if name == "phase_head_kernel" else "")
                       + (f", N slice {args[0]}" if name == "concat_bn_relu_conv1x1_mma_kernel"
                          else "") + ">")
         elif "spill stores" in line:
@@ -648,7 +681,7 @@ def _ptxas_report(build_log, lib):
         elif "registers" in line:
             dynamic = ""
             if name == "phase_head_mma_kernel":
-                dynamic = f", {lib.dmm_phase_head_mma_smem()} bytes dynamic smem"
+                dynamic = f", {lib.dmm_phase_head_mma_smem(*args[:2])} bytes dynamic smem"
             elif name in ("dense_layer_mma_kernel", "dense_block_recompute_mma_kernel"):
                 dynamic = f", {lib.dmm_dense_layer_mma_smem(*layout)} bytes dynamic smem"
             elif name == "dense_block_mma_kernel":
@@ -974,6 +1007,35 @@ def _time_train(tag, state, step, eval_step, gen, device):
                          f"b{TIMED_TRAIN_BATCHES[0]} bf16 {HEIGHT}x{WIDTH} train step")
 
 
+def _phase_mask(hh, hw, dtype, device):
+    """``(4, 1, hh + 1, hw + 1)``: 1 where phase ``p = 2 pu + pv``'s slice of
+    the window grid lies (rows ``pu .. pu + hh - 1``, columns ``pv .. pv +
+    hw - 1``), else 0."""
+    import torch
+
+    mask = torch.zeros(4, 1, hh + 1, hw + 1, dtype=dtype, device=device)
+    for p in range(4):
+        pu, pv = divmod(p, 2)
+        mask[p, :, pu:pu + hh, pv:pv + hw] = 1
+    return mask
+
+
+def _refine1_single(P, g1, b1, w4t, mask):
+    """JAX's ``single`` form of the phase-space refine1, timed against the
+    port's ``slices`` form (``phase_head.phase_head_refine1``): BN1 + ReLU
+    over the whole window grid ``P``, zeroed outside each phase's slice by
+    ``mask`` (:func:`_phase_mask`), one 4x4 conv, and the depth-to-space."""
+    import torch
+    import torch.nn.functional as F
+
+    b, cm4, gh, gw = P.shape
+    dt = P.dtype
+    h = torch.relu(torch.addcmul(b1.to(dt)[:, None, None], P.view(b, 4, cm4 // 4, gh, gw),
+                                 g1.to(dt)[:, None, None]))
+    out = F.conv2d((h * mask).reshape(b, cm4, gh, gw), w4t.to(dt), padding=1)
+    return F.pixel_shuffle(out, 2).contiguous(memory_format=torch.channels_last)
+
+
 def _raw_batches(cfg, device):
     """Config 5's raw-record batch in both splat modes, from the same draws:
     ``host``, the host-splat ``(image, lidar, boxes)``, and ``raw``, ``(image,
@@ -1112,12 +1174,12 @@ def _serve_densenet161(cfgs, device, rng, path_counts):
     one with ``dense_block_strip = "on"`` (K5 in K2's place); at 128x192
     with ``dense_block_impl = "pallas"``, one request at b1 and one at b32
     (K4 on JAX's blocks). Each request's heat maps are finite in [0, 1] and
-    held against the same weights in f32 on the default path. On the
-    default path JAX's gates (``kernel_limits=False``) are counted beside
-    the port's: both take K2 four times, and JAX's K3 once, which the port
-    does not (c_mid 96 is past K3's limit: open kernel work, ROADMAP.md
-    section 2); the phase fails if either moves. Returns the 1280x1920
-    engines of both paths."""
+    held against the same weights in f32 on the default path (the f32 model
+    runs K3's f32 body, wide, at the full plane). On the default path JAX's
+    gates (``kernel_limits=False``) are counted beside the port's: both take
+    K2 four times and K3 once (c_mid 96, source 208: K3's wide layout); the
+    phase fails if either moves. Returns the 1280x1920 engines of both
+    paths."""
     import numpy as np
 
     from dmmfods_tpu_torch.models.dense_unet_lidar import densenet161_u_lidar
@@ -1148,8 +1210,8 @@ def _serve_densenet161(cfgs, device, rng, path_counts):
         if path == "default":
             jax_gates, port_gates = gates
             print(f"densenet161 gates: JAX's run {jax_gates} here, the port's {port_gates}: "
-                  f"growth 48 (K 192) runs in the layer bodies' wide layout; c_mid 96 is "
-                  f"past K3's limit (<= 64), so the plain head runs (open kernel work)")
+                  f"growth 48 (K 192) runs in the layer bodies' wide layout, the head (c_mid "
+                  f"96, source 208) in K3's wide layout")
             if jax_gates != DENSENET161_JAX_KERNELS or port_gates != DENSENET161_PORT_KERNELS:
                 raise AssertionError(
                     f"DenseNet-161's gate decisions moved: JAX {jax_gates} (want "
@@ -1253,8 +1315,8 @@ def main() -> int:
         return 1
     from dmmfods_tpu_torch.config import get_config
     from dmmfods_tpu_torch.data import native_io
-    from dmmfods_tpu_torch.models.dense_unet_lidar import (DenseBlock, Encoder, ModelSpec,
-                                                           densenet121_u_lidar,
+    from dmmfods_tpu_torch.models.dense_unet_lidar import (DenseBlock, Encoder, Head,
+                                                           ModelSpec, densenet121_u_lidar,
                                                            densenet161_u_lidar)
     from dmmfods_tpu_torch.ops import (_build, dense_block, dense_block_strip, fused,
                                        phase_head, stem_pool)
@@ -1381,14 +1443,34 @@ def main() -> int:
     k3_cases = [("1280x1920", K3_FULL, torch.bfloat16)]
     k3_cases += [("ragged", shape, torch.bfloat16) for shape in K3_RAGGED_BF16]
     k3_cases.append(("ragged", (13, 21, 40, 3, 20, 3), torch.float32))
+    k3_cases += [("densenet161 1280x1920", K3_FULL_161, dt)
+                 for dt in (torch.bfloat16, torch.float32)]
+    k3_cases += [("wide ragged", shape, dt) for shape in K3_RAGGED_WIDE
+                 for dt in (torch.bfloat16, torch.float32)]
     for name, shape, dt in k3_cases:
         x_lo, raw, consts = _k3_inputs(gen, *shape, dt, device)
         out = phase_head.phase_head(x_lo, raw, **consts)
         torch.cuda.synchronize()
         ref = phase_head.phase_head_reference(x_lo.float(), raw.float(), **consts)
+        c_src = shape[2] + 4 * shape[3]
+        plan = (f"layout {phase_head.bf16_layout(c_src, shape[4])}" if dt == torch.bfloat16
+                else "f32 body")
         worst["K3"] = max(worst["K3"], _check(
             "K3", f"{name} x_lo {tuple(x_lo.shape)} raw {tuple(raw.shape)} "
-            f"c_mid={shape[4]} classes={shape[5]}", out, ref))
+            f"c_mid={shape[4]} classes={shape[5]}, source {c_src}, {plan}", out, ref))
+    # past K3's limits the wrapper raises on the card and the C entry refuses
+    x_lo, raw, consts = _k3_inputs(gen, 4, 6, 40, 3, 128, 3, torch.bfloat16, device)
+    try:
+        phase_head.phase_head(x_lo, raw, **consts)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("phase_head took c_mid 128")
+    rc = lib.dmm_phase_head(*[None] * 9, 1, 4, 6, 40, 3, 128, 3, 1, None)
+    if rc == 0 or lib.dmm_phase_head_mma_smem(272, 96) != 0:
+        raise AssertionError(f"K3's C entry took c_mid 128 ({rc}) or a source of 272")
+    print(f"K3 past its limits: c_mid 128 raises in the wrapper, the C entry returns {rc}; "
+          f"no bf16 layout takes a source of 272")
     k4_cases = [(f"{name} b{batch}", batch, *K4_BLOCKS[name], 32, 128, torch.bfloat16)
                 for name, batches in K4_PATH_BATCHES.items() for batch in batches + (256,)]
     k4_cases += [(f"densenet161 {name} b{batch}", batch, *shape, 48, 192, torch.bfloat16)
@@ -1432,7 +1514,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as host:
-        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train = (get_config(host) for _ in range(6))
+        cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train, cfg_nf = (
+            get_config(host) for _ in range(7))
         cfg161 = {path: get_config(host) for path in (*DENSENET161_LAUNCHES, "plain blocks")}
     for c in (cfg3, cfg3_opt, cfg3_k5, cfg161["default"], cfg161["K5 path"],
               cfg161["plain blocks"]):
@@ -1444,6 +1527,7 @@ def main() -> int:
     for c in (cfg_opt, cfg3_opt):
         c.gpu.dense_block_impl = "pallas"
         c.gpu.stem_pool_strip = "on"
+    cfg_nf.gpu.use_fused_kernels = False    # the plain concat and head
     rng = np.random.default_rng(SEED)
     path_counts = []        # the counts of every main-path run below
 
@@ -1494,6 +1578,24 @@ def main() -> int:
     worst["K1"] = max(worst["K1"], err)
     _served_vs_f32(bundle, *requests[-1], results[-1], device, f"{HEIGHT}x{WIDTH}")
     del captured
+
+    # the same weights with gpu.use_fused_kernels = False: the plain concat and
+    # head (upsample, concat, convs), neither K1 nor K3
+    bundle_nf = densenet121_u_lidar(config=cfg_nf, device=device, seed=SEED)
+    engine_nf = InferenceEngine(bundle_nf, buckets=buckets)
+    _reset_counts()
+    served_nf = engine_nf.run(*requests[-1])
+    path_counts.append(_counts())
+    _check_heat_maps(requests[-1:], [served_nf], HEIGHT, WIDTH)
+    print(f"use_fused_kernels False, {HEIGHT}x{WIDTH}, {requests[-1][0].shape[0]} frames: ",
+          end="")
+    _per_batch(path_counts[-1], engine_nf.device_batches, NO_FUSED_LAUNCHES)
+    diff = np.abs(served_nf - results[-1])
+    print(f"served bf16 without the fused kernels vs the default path (K1, the phase-space "
+          f"head): max abs diff {diff.max():.3e} (mean {diff.mean():.3e}) <= bound "
+          f"{BOUND_SERVED_VS_F32}")
+    if not diff.max() <= BOUND_SERVED_VS_F32:
+        raise AssertionError("use_fused_kernels False disagrees with the default path")
 
     # 6. serve at 1280x1920, batch 1 (config 3) -----------------------------
     bundle3 = densenet121_u_lidar(config=cfg3, device=device, seed=SEED)
@@ -1604,13 +1706,16 @@ def main() -> int:
     for batch in (1, 8, 32, 256):
         rgb = torch.rand(batch, HEIGHT, WIDTH, 3, generator=gen).to(device, spec.dtype)
         lidar = torch.rand(batch, HEIGHT, WIDTH, 1, generator=gen).to(device, spec.dtype)
-        default_ms, opt_ms = _in_turns(lambda: engine.forward(rgb, lidar),
-                                       lambda: engine_opt.forward(rgb, lidar), iters=10)
+        default_ms, opt_ms, nf_ms = _in_turns(lambda: engine.forward(rgb, lidar),
+                                              lambda: engine_opt.forward(rgb, lidar),
+                                              lambda: engine_nf.forward(rgb, lidar), iters=10)
         print(f"{tag} engine forward b{batch} bf16 {HEIGHT}x{WIDTH}: default median "
               f"{default_ms:.4f} ms ({batch / default_ms * 1e3:.1f} frames/s); opt-ins "
-              f"(K4, K6) {opt_ms:.4f} ms ({batch / opt_ms * 1e3:.1f} frames/s) (20 "
-              f"iterations each, in turns)")
-    for label, eng, ms in (("default", engine, default_ms), ("opt-in", engine_opt, opt_ms)):
+              f"(K4, K6) {opt_ms:.4f} ms ({batch / opt_ms * 1e3:.1f} frames/s); "
+              f"use_fused_kernels False (no K1, the plain head) {nf_ms:.4f} ms "
+              f"({batch / nf_ms * 1e3:.1f} frames/s) (20 iterations each, in turns)")
+    for label, eng, ms in (("default", engine, default_ms), ("opt-in", engine_opt, opt_ms),
+                           ("use_fused_kernels False", engine_nf, nf_ms)):
         _print_profile(tag, lambda: eng.forward(rgb, lidar), ms,
                        f"{label} b256 bf16 {HEIGHT}x{WIDTH} forward")
     del rgb, lidar
@@ -1643,7 +1748,7 @@ def main() -> int:
     fwd161 = dict(zip(engines161, _in_turns(
         *(lambda eng=eng: eng.forward(rgb, lidar) for eng in engines161.values()), iters=8)))
     print(f"{tag} engine forward densenet161 b1 bf16 {FULL_HEIGHT}x{FULL_WIDTH} (mid fusion "
-          f"before block 3; the plain head where JAX runs K3): " + "; ".join(
+          f"before block 3; K3 on the head): " + "; ".join(
               f"{label} median {ms:.4f} ms, {1e3 / ms:.2f} frames/s" for label, ms in
               fwd161.items()) + " (16 iterations each, in turns)")
     for label, eng in engines161.items():
@@ -1784,6 +1889,82 @@ def main() -> int:
           f"(kernel_weights) {k3_fold_ms:.4f} ms by CUDA events (20 iterations each, in "
           f"turns), {fold_wall_ms:.4f} ms of host wall time with its sync (20 folds); "
           f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    # K3 at DenseNet-161's head (the wide layout) beside its plain version,
+    # the model's plain head (use_fused_kernels False: upsample, concat,
+    # cuDNN convs in bf16) and the phase-space eval head on the same inputs
+    x_lo, raw, consts = _k3_inputs(gen, *K3_FULL_161, torch.bfloat16, device)
+    c_up, c_mid = x_lo.shape[-1], consts["w0"].shape[0]
+    weights = phase_head.kernel_weights(consts["w0"], consts["w1"], c_up, x_lo.dtype)
+    heads = {}
+    for fused in (False, True):     # the plain head, and the head's phase-space weights
+        head = Head(c_up, raw.shape[-1], c_mid, consts["w1"].shape[0], use_fused=fused)
+        with torch.no_grad():   # BN set so that its fold is (g, b): var + eps = 1
+            for norm, g, b in ((head.norm0, "g0", "b0"), (head.norm1, "g1", "b1")):
+                norm.weight.copy_(consts[g])
+                norm.bias.copy_(consts[b])
+                norm.running_var.fill_(1 - norm.eps)
+            head.refine0.weight.copy_(consts["w0"])
+            head.refine1.weight.copy_(consts["w1"])
+        heads[fused] = head.to(device, memory_format=torch.channels_last).eval()
+    x_nchw, raw_nchw = x_lo.permute(0, 3, 1, 2), raw.permute(0, 3, 1, 2)
+    g0, b0, g1, b1 = (consts[k] for k in ("g0", "b0", "g1", "b1"))
+    w0t, w4t = heads[True]._phase_space_weights(x_lo.dtype)
+    with torch.inference_mode():
+        k3_161 = dict(zip(("ms", "plain_ms", "model_head_ms", "phase_space_ms"), _in_turns(
+            lambda: phase_head.phase_head(x_lo, raw, **consts, weights=weights),
+            lambda: phase_head.phase_head_reference(x_lo, raw, **consts),
+            lambda: heads[False](x_nchw, raw_nchw),
+            lambda: phase_head.phase_space_head(x_nchw, raw_nchw, g0=g0, b0=b0, g1=g1, b1=b1,
+                                                w0t=w0t, w4t=w4t), iters=10)))
+    _, hh, hw, _ = x_lo.shape
+    rc, n_cls = raw.shape[-1], consts["w1"].shape[0]
+    k3_161["bound"] = _bound(
+        2 * hh * hw * 4 * (4 * c_up * c_mid + 9 * rc * c_mid + 25 * c_mid * n_cls),
+        _nbytes(x_lo, raw, *consts.values()) + 4 * hh * hw * n_cls * x_lo.element_size(),
+        x_lo.dtype)
+    print(f"{tag} K3 densenet161 {FULL_HEIGHT}x{FULL_WIDTH} (x_lo {tuple(x_lo.shape)}, raw "
+          f"{tuple(raw.shape)}, c_mid {c_mid}) bf16, layout "
+          f"{phase_head.bf16_layout(c_up + 4 * rc, c_mid)}, weights folded beforehand: "
+          f"median {k3_161['ms']:.4f} ms; plain version (cuDNN, bf16) "
+          f"{k3_161['plain_ms']:.4f} ms; the model's plain head (use_fused_kernels False) "
+          f"{k3_161['model_head_ms']:.4f} ms; the phase-space eval head "
+          f"{k3_161['phase_space_ms']:.4f} ms (20 iterations each, in turns); bound "
+          f"{k3_161['bound'][0]:.4f} ms ({k3_161['bound'][1]})")
+    del heads, w0t, w4t
+    # the phase-space head's two eval forms of refine1 (four 3x3 convs over
+    # the slices, the model's, or JAX's one 4x4 conv over the masked grid)
+    # and the plain head at DenseNet-121's 128x192 head, on the same window grid
+    for batch in PHASE_HEAD_BATCHES:
+        x_lo, raw, consts = _k3_inputs(gen, HEIGHT // 2, WIDTH // 2, 128, 4, 64, 3,
+                                       torch.bfloat16, device, batch=batch)
+        x_nchw, raw_nchw = x_lo.permute(0, 3, 1, 2), raw.permute(0, 3, 1, 2)
+        g0, b0, g1, b1 = (consts[k] for k in ("g0", "b0", "g1", "b1"))
+        w0t, w4t = (w.to(x_lo.dtype) for w in
+                    phase_head.phase_space_weights(consts["w0"], consts["w1"], 128))
+        g, b = (t.to(x_lo.dtype)[:, None, None] for t in (g0, b0))
+        mask = _phase_mask(HEIGHT // 2, WIDTH // 2, x_lo.dtype, device)
+        with torch.inference_mode():
+            a = torch.relu(torch.addcmul(b[:128], x_nchw, g[:128]))
+            rn = torch.relu(torch.addcmul(b[128:], raw_nchw, g[128:]))
+            P = phase_head.phase_head_conv0(a, rn, w0t)
+            slices = phase_head.phase_head_refine1(P, g1, b1, w4t, HEIGHT // 2, WIDTH // 2)
+            err = float((_refine1_single(P, g1, b1, w4t, mask) - slices).abs().max()
+                        / slices.abs().max())
+            if not err <= 2e-2:
+                raise AssertionError(f"the single form of refine1 is {err:.3e} of max|slices| "
+                                     "from the slices form (bound 2e-2)")
+            slices_ms, single_ms, conv0_ms, plain_ms = _in_turns(
+                lambda: phase_head.phase_head_refine1(P, g1, b1, w4t, HEIGHT // 2, WIDTH // 2),
+                lambda: _refine1_single(P, g1, b1, w4t, mask),
+                lambda: phase_head.phase_head_conv0(a, rn, w0t),
+                lambda: phase_head.phase_head_reference(x_lo, raw, **consts), iters=10)
+        print(f"{tag} phase-space head forms b{batch} bf16 {HEIGHT}x{WIDTH} (x_lo "
+              f"{tuple(x_lo.shape)}, c_mid 64): refine1 as four 3x3 convs over the slices "
+              f"(the model's) {slices_ms:.4f} ms; as one 4x4 conv over the masked grid "
+              f"{single_ms:.4f} ms (err / max|slices| {err:.3e}); conv0 (the 2x2 window "
+              f"conv) {conv0_ms:.4f} ms; the plain head (K3's plain version: upsample, "
+              f"concat, BN, 3x3, BN, 5x5) {plain_ms:.4f} ms (20 iterations each, in turns)")
+        del x_nchw, raw_nchw, a, rn, P, slices, w0t, w4t, g, b, mask
     k4_ms, k4_bound = {}, {}
     for name, (h, w, c0, layers) in K4_BLOCKS.items():
         x, folded = _k2_inputs(gen, h, w, c0, layers, 32, 128, torch.bfloat16, device,
@@ -1892,7 +2073,10 @@ def main() -> int:
          "replaces": "dmmfods_tpu/ops/pallas/phase_head.py:246",
          "launches": launches["K3"], "max_abs_err": worst["K3"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": LIBRARY_MS, "fold_ms": k3_fold_ms},
+         "bound_by": k3_bound[1], "library_ms": LIBRARY_MS, "fold_ms": k3_fold_ms,
+         **{f"{key}_161": (k3_161["bound"][0] if key == "bound_ms" else k3_161[key])
+            for key in ("ms", "plain_ms", "model_head_ms", "phase_space_ms", "bound_ms")},
+         "bound_by_161": k3_161["bound"][1]},
         {"name": "dense_block", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/dense_block.cu",
          "replaces": "dmmfods_tpu/ops/pallas/dense_block.py:262",

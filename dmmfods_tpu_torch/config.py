@@ -22,8 +22,18 @@ config makes under ``gpu``, with the same meaning:
   JAX's override of its TPU quarantine, means the same); ``auto`` (as in
   JAX, measured neutral there) and ``off`` run the plain stem. Other values
   raise.
+* ``use_fused_kernels`` (JAX's ``tpu.use_fused_kernels``): in eval, the
+  mid-fusion concat runs as K1 and the head as K3 (batch 1, big planes) or
+  in phase space. Off, both run their plain forms (upsample, concat, BN,
+  convs). Train mode runs the plain forms either way (JAX's phase-space
+  train head is not ported). The block and stem kernels keep their own
+  switches.
+* ``fused_head_max_pixels`` (JAX's ``tpu.fused_head_max_pixels``): the
+  head runs as above only on output planes of at most this many pixels.
 
-The defaults run K2 on the big batch-1 blocks and neither K4, K5 nor K6.
+The defaults run K1, the phase-space head (K3 at batch 1 on big planes) and
+K2 on the big batch-1 blocks, and neither K4, K5 nor K6. A saved config
+lacking a ``gpu`` key gains its default on load.
 """
 
 from __future__ import annotations
@@ -46,6 +56,10 @@ GPU_DEFAULTS = {
     "dense_block_strip": "auto",
     # the JAX default of tpu.stem_pool_strip: K6 off
     "stem_pool_strip": "auto",
+    # the JAX defaults of tpu.use_fused_kernels and tpu.fused_head_max_pixels:
+    # K1 and the phase-space head (K3 at batch 1 on big planes) on every plane
+    "use_fused_kernels": True,
+    "fused_head_max_pixels": 1 << 62,
 }
 
 
@@ -245,13 +259,13 @@ def create_config(host_dir=""):
 
 def get_config(host_dir="", file_name="config.json"):
     """Load the saved config, or create the default; either way with a
-    ``gpu`` section (a config saved by the JAX package has none)."""
+    ``gpu`` section holding every key of ``GPU_DEFAULTS`` (a config saved by
+    the JAX package has no section, an older port config lacks later keys)."""
     config = load_config(join(host_dir, "DMMFODS", "dmmfods_tpu", "configs"), file_name)
     if config is None:
         config = create_config(host_dir)
     config = EDict(config)
-    if "gpu" not in config:
-        config.gpu = dict(GPU_DEFAULTS)
+    config.gpu = {**GPU_DEFAULTS, **config.get("gpu", {})}
     return config
 
 

@@ -36,11 +36,12 @@
 //   w0p   (2, 2, c_src, 4, cm)      float, refine0 in phase space
 //   w1    (5, 5, cm, nc)            float, refine1 as (ky, kx, in, out)
 // and for bfloat16 packed by ops/phase_head.py::pack_phase_head_weights
-//   w0k   (4, 4 cp, 64)             bf16, w0p as phase p = 2u + v, then
+//   w0k   (4, 4 cp, CMT)            bf16, w0p as phase p = 2u + v, then
 //                                   k = (2r + s) cp + c, then cm padded to
-//                                   64; cp = c_src rounded up to 16
-//   w1k   (25, 64, 8)               bf16, w1 with cm padded to 64, nc to 8
-// (zeros in every padding).
+//                                   CMT; cp = c_src rounded up to 16
+//   w1k   (25, CMT, 8)              bf16, w1 with cm padded to CMT, nc to 8
+// (zeros in every padding), with CMT the layout's padded mid channels (64
+// or 96, below).
 //
 // What bounds it on an H100: at 1280x1920 refine0 in phase space is 4 x 144
 // x 64 MACs per pixel, about 181 GFLOP a frame, refine1 25 x 64 x 3 MACs
@@ -75,9 +76,20 @@
 //   * runs refine1 as an implicit GEMM too, nc padded to one n8 tile: M =
 //     the 512 output pixels, K = 25 taps x 64, A rows from h in shared
 //     memory.
-// One 256-thread block per tile and per SM (the source, h and the ring take
-// 222 KB of shared memory). Shapes: c_src <= 192 (the source's room in
-// shared memory), cm <= 64, nc <= 8; larger is refused.
+// One 256-thread block per tile and per SM. The kernel is a template on its
+// shared-memory layout HeadLayout<KCS, CMT, CMP>, picked by shape in the C
+// entry (mirrored by ops/phase_head.py::LAYOUTS_BF16):
+//   * <192, 64, 64>, DenseNet-121's head (c_src <= 192, cm <= 64): the
+//     source, h (all 64 mid channels) and the ring take 222 KB;
+//   * <256, 96, 48>, DenseNet-161's (c_src 208, cm 96; any c_src <= 256,
+//     cm <= 96): the same tile in two passes over the mid channels. The
+//     source stays resident (124 KB at 256 channels); each pass runs
+//     refine0 for 48 mid channels from its half of w0k's columns into a
+//     48-channel h (79 KB), then adds refine1's partial sums over those
+//     channels (K = 25 x 48) to the same accumulators. Each tile still
+//     reads w0k once; 224 KB in all.
+// A pass's w1k rows are staged into the ring once its refine0 is done.
+// nc <= 8; larger shapes are refused.
 // What bounds it now (an H100 at 700 W: ~2.3 ms at 1280x1920, ~11x the
 // bound, by variants with one part removed): not the MMAs but latency at
 // one 8-warp block per SM, in the tile's staging, the ring's per-chunk
@@ -102,8 +114,10 @@
 // Compiling parts of it out on an H100 (700 W) showed staging, the refine0
 // FMAs and refine1 run one after the other, with one block per SM (160
 // registers a thread). Any H, W and channel count are taken with masked
-// edges; cm <= 64 and nc <= 8 are the shared-memory plan's limits and
-// larger is refused.
+// edges. It is a template on the mid channels it holds, CMMax = 64 or 96
+// (refine0 accumulates 4 or 6 channels x 15 pixels a thread; the C entry
+// picks the smaller that takes cm); cm <= 96 and nc <= 8 are the
+// shared-memory plan's limits and larger is refused.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -125,23 +139,28 @@ constexpr int kLH = kTH / 2 + 4;        // low-res source halo rows
 constexpr int kLW = kTW / 2 + 4;
 constexpr int kLo = kLH * kLW;          // 96 low-res source cells
 constexpr int kLS = kLo + 1;            // odd stride: conflict-free staging
-constexpr int kCMMax = 64;              // refine0 outputs c_mid
-constexpr int kHS = kCMMax + 2;         // h row stride
+constexpr int kCMMaxWide = 96;          // refine0 outputs c_mid, widest plan
 constexpr int kNCMax = 8;               // classes
 constexpr int kCK = 16;                 // source channels staged per step
 constexpr int kThreads = 256;
 constexpr int kOut = kTH * kTW;         // 128 output pixels
 
-constexpr int kStage0 = kCK * kLS + 4 * kCK * 4 * kCMMax;  // source + w0p chunk
-constexpr int kStage1 = 25 * kCMMax * kNCMax;              // w1, after refine0
-constexpr int kStageFloats = kStage0 > kStage1 ? kStage0 : kStage1;
+// the shared-memory plan of a kernel holding CMMax mid channels
+template <int CMMax>
+struct F32Plan {
+  static constexpr int kHS = CMMax + 2;                            // h row stride
+  static constexpr int kStage0 = kCK * kLS + 4 * kCK * 4 * CMMax;  // source + w0p chunk
+  static constexpr int kStage1 = 25 * CMMax * kNCMax;              // w1, after refine0
+  static constexpr int kStageFloats = kStage0 > kStage1 ? kStage0 : kStage1;
+};
 
-template <typename T>
+template <typename T, int CMMax>
 constexpr size_t smem_bytes() {
-  return (kStageFloats + kOut * kNCMax) * sizeof(float) + kMid * kHS * sizeof(T);
+  using P = F32Plan<CMMax>;
+  return (P::kStageFloats + kOut * kNCMax) * sizeof(float) + kMid * P::kHS * sizeof(T);
 }
 
-template <typename T>
+template <typename T, int CMMax>
 __global__ void __launch_bounds__(kThreads, 1)
 phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
                   const float* __restrict__ g0, const float* __restrict__ b0,
@@ -149,12 +168,14 @@ phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
                   const float* __restrict__ b1, const T* __restrict__ w1,
                   T* __restrict__ out, int H, int W, int c_up, int rc, int cm,
                   int nc) {
+  constexpr int kHS = F32Plan<CMMax>::kHS;
+  constexpr int kNJ = CMMax / 16;               // mid channels a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* stage = reinterpret_cast<float*>(smem_raw);
   float* srcs = stage;                          // [kCK][kLS]
-  float* w0s = stage + kCK * kLS;               // [4 taps][kCK][4 phases][kCMMax]
+  float* w0s = stage + kCK * kLS;               // [4 taps][kCK][4 phases][CMMax]
   float* w1s = stage;                           // [25][cm][nc], after refine0
-  float* part = stage + kStageFloats;           // [kOut][kNCMax]
+  float* part = stage + F32Plan<CMMax>::kStageFloats;  // [kOut][kNCMax]
   T* hs = reinterpret_cast<T*>(part + kOut * kNCMax);  // [kMid][kHS]
 
   const int tid = threadIdx.x;
@@ -186,11 +207,11 @@ phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
     base[i] = (qy + u) * kLW + (qx + v);
     mid[i] = (2 * qy + u) * kMW + (2 * qx + v);
   }
-  float acc[15][4];
+  float acc[15][kNJ];
 #pragma unroll
   for (int i = 0; i < 15; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
 
   for (int c0 = 0; c0 < c_src; c0 += kCK) {
     for (int e = tid; e < kLo * kCK; e += kThreads) {
@@ -216,11 +237,11 @@ phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
       }
       srcs[kk * kLS + cell] = val;
     }
-    for (int e = tid; e < 4 * kCK * 4 * kCMMax; e += kThreads) {
-      const int n = e % kCMMax;
-      const int p = (e / kCMMax) % 4;
-      const int kk = (e / (4 * kCMMax)) % kCK;
-      const int tap = e / (4 * kCMMax * kCK);
+    for (int e = tid; e < 4 * kCK * 4 * CMMax; e += kThreads) {
+      const int n = e % CMMax;
+      const int p = (e / CMMax) % 4;
+      const int kk = (e / (4 * CMMax)) % kCK;
+      const int tap = e / (4 * CMMax * kCK);
       const int c = c0 + kk;
       w0s[e] = (c < c_src && n < cm)
                    ? w0p[((static_cast<int64_t>(tap) * c_src + c) * 4 + p) * cm + n]
@@ -232,16 +253,16 @@ phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
       const int shift = (tap / 2) * kLW + (tap % 2);
 #pragma unroll 2
       for (int kk = 0; kk < kCK; ++kk) {
-        float wv[4], av[15];
-        const float* wrow = w0s + ((tap * kCK + kk) * 4 + phase) * kCMMax + tc;
+        float wv[kNJ], av[15];
+        const float* wrow = w0s + ((tap * kCK + kk) * 4 + phase) * CMMax + tc;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = wrow[16 * j];
+        for (int j = 0; j < kNJ; ++j) wv[j] = wrow[16 * j];
 #pragma unroll
         for (int i = 0; i < 15; ++i) av[i] = srcs[kk * kLS + base[i] + shift];
 #pragma unroll
         for (int i = 0; i < 15; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
       }
     }
     __syncthreads();
@@ -255,7 +276,7 @@ phase_head_kernel(const T* __restrict__ x_lo, const T* __restrict__ raw,
     const int gx = x0 - 2 + m % kMW;
     const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kNJ; ++j) {
       const int n = tc + 16 * j;
       if (n >= cm) continue;
       const float v = inside ? fmaxf(fmaf(acc[i][j], g1[n], b1[n]), 0.f) : 0.f;
@@ -315,24 +336,35 @@ constexpr int kWarpMT = 3;               // m16 tiles per warp (4 warps over M)
 static_assert(4 * kWarpMT * 16 >= kPM, "the warps cover a phase's mid pixels");
 constexpr int kLW = kTW / 2 + 4;         // low-res source halo: 12 x 20 cells
 constexpr int kCells = (kTH / 2 + 4) * kLW;
-constexpr int kCSrcMax = 192;            // source channels (c_src rounded up to 16)
 constexpr int kMW = kTW + 4;             // h: 20 x 36 mid pixels
 constexpr int kMid = (kTH + 4) * kMW;
-constexpr int kHS = 72;                  // h row stride: 64 + 8, conflict-free ldmatrix
 constexpr int kKC = 64;                  // w0k rows per ring chunk
-constexpr int kWS = 72;                  // ring row stride
 constexpr int kStages = 3;
 constexpr int kThreads = 256;
-constexpr size_t kSrcBytes = size_t(kCells) * (kCSrcMax + 8) * sizeof(bf16);
-constexpr size_t kHBytes = size_t(kMid) * kHS * sizeof(bf16);
-constexpr size_t kRingBytes = size_t(kStages) * kKC * kWS * sizeof(bf16);
-constexpr size_t kSmem = kSrcBytes + kHBytes + kRingBytes;
-static_assert(kSmem <= 232448, "one block per SM");
-static_assert(25 * 64 * 8 * sizeof(bf16) <= kSrcBytes, "w1k fits where the source was");
+
+// The shared-memory layout: KCS source channels at most (c_src rounded up to
+// 16), CMT mid channels padded (w0k's columns, w1k's rows), CMP of them a
+// pass. Two warps split a pass's channels over N.
+template <int KCS, int CMT, int CMP>
+struct HeadLayout {
+  static constexpr int kPasses = CMT / CMP;
+  static constexpr int kNT = CMP / 16;           // n8 tiles a warp
+  static constexpr int kHS = CMP + 8;            // h row stride: conflict-free ldmatrix
+  static constexpr int kWS = CMP + 8;            // ring row stride
+  static constexpr size_t kSrcBytes = size_t(kCells) * (KCS + 8) * sizeof(bf16);
+  static constexpr size_t kHBytes = size_t(kMid) * kHS * sizeof(bf16);
+  static constexpr size_t kRingBytes = size_t(kStages) * kKC * kWS * sizeof(bf16);
+  static constexpr size_t kSmem = kSrcBytes + kHBytes + kRingBytes;
+  static_assert(CMT % CMP == 0 && CMP % 16 == 0, "whole passes of k16 steps");
+  static_assert(KCS % 16 == 0 && KCS <= 256, "the BN0 pass: 8 channels a lane");
+  static_assert(kSmem <= 232448, "one block per SM");
+  static_assert(25 * CMP * 8 * sizeof(bf16) <= kRingBytes, "a pass's w1k fits in the ring");
+};
 
 // One 16x32 output tile per block (see the note at the top): the source
-// staged once with BN0 + ReLU, refine0 phase by phase through the w0k ring
-// into h, then refine1 from h.
+// staged once with BN0 + ReLU; per pass, refine0 phase by phase through the
+// w0k ring into h, then refine1 from h into the accumulators.
+template <int KCS, int CMT, int CMP>
 __global__ void __launch_bounds__(kThreads, 1)
 phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ raw,
                       const float* __restrict__ g0, const float* __restrict__ b0,
@@ -340,11 +372,14 @@ phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ ra
                       const float* __restrict__ b1, const bf16* __restrict__ w1k,
                       bf16* __restrict__ out, int H, int W, int c_up, int rc, int cm,
                       int nc) {
+  using L = HeadLayout<KCS, CMT, CMP>;
+  constexpr int kHS = L::kHS;
+  constexpr int kWS = L::kWS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* src = reinterpret_cast<bf16*>(smem_raw);                      // [kCells][ss]
-  bf16* hs = reinterpret_cast<bf16*>(smem_raw + kSrcBytes);           // [kMid][kHS]
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + kSrcBytes + kHBytes);
-  bf16* w1s = src;                                                    // [25][64][8], after refine0
+  bf16* src = reinterpret_cast<bf16*>(smem_raw);                        // [kCells][ss]
+  bf16* hs = reinterpret_cast<bf16*>(smem_raw + L::kSrcBytes);          // [kMid][kHS]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + L::kSrcBytes + L::kHBytes);
+  bf16* w1s = ring;                       // [25][CMP][8], a pass's, after its refine0
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -395,23 +430,28 @@ phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ ra
     }
   }
   cp_async_commit();
-  auto load_chunk = [&](int j) {          // w0k rows [kc kKC, +kKC) of phase p
+  // w0k rows [kc kKC, +kKC) of phase p, the pass's CMP columns
+  auto load_chunk = [&](int pass, int j) {
+    constexpr int kPieces = CMP / 8;
     const int p = j / nkc;
     const int kc = j - p * nkc;
-    const bf16* g = w0k + (static_cast<int64_t>(p) * 4 * cp + kc * kKC) * 64;
+    const bf16* g = w0k + (static_cast<int64_t>(p) * 4 * cp + kc * kKC) * CMT + pass * CMP;
     bf16* d = ring + (j % kStages) * kKC * kWS;
-    for (int e = tid; e < kKC * 8; e += kThreads)
-      cp_async16(d + (e >> 3) * kWS + (e & 7) * 8, g + e * 8, true);
+    for (int e = tid; e < kKC * kPieces; e += kThreads) {
+      const int r = e / kPieces;
+      const int v = e - r * kPieces;
+      cp_async16(d + r * kWS + v * 8, g + r * CMT + v * 8, true);
+    }
   };
-  load_chunk(0);
+  load_chunk(0, 0);
   cp_async_commit();
-  load_chunk(1);
+  load_chunk(0, 1);
   cp_async_commit();
   cp_async_wait<2>();                     // the source has landed
   __syncthreads();
 
   // ---- BN0 + ReLU in place: warp w takes cells w, w + 8, ..., lane v the
-  // channels [8 v, 8 v + 8) of each (cp <= 192: 24 lanes at most), with its
+  // channels [8 v, 8 v + 8) of each (cp <= 256: 32 lanes at most), with its
   // channels' BN0 constants and raw offsets in registers; zero outside the
   // image and in the padding ---------------------------------------------------
   if (lane < cp / 8) {
@@ -464,87 +504,10 @@ phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ ra
     }
   }
 
-  // ---- refine0: phase by phase, warp (wm, wn) -> m16 tiles 3 wm + i, mid
-  // channels 32 wn + [0, 32) --------------------------------------------------
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
+  // refine1's accumulators, summed over the passes: warp w -> output pixels
+  // [64 w, 64 w + 64), all classes
   const int arow = lane & 15;             // the lane's ldmatrix row
   const int acol = (lane >> 4) * 8;       // and column
-  float acc[kWarpMT][4][4];
-  int cell0[kWarpMT];                     // the lane's A row: its window's first cell
-  for (int j = 0; j < nchunks; ++j) {
-    const int p = j / nkc;
-    const int kc = j - p * nkc;
-    if (kc == 0) {
-#pragma unroll
-      for (int i = 0; i < kWarpMT; ++i) {
-        int q = (wm * kWarpMT + i) * 16 + arow;
-        q = q < kPM ? q : 0;              // a padding row reads any cell
-        cell0[i] = (q / kPW + (p >> 1)) * kLW + q % kPW + (p & 1);
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][t][r] = 0.f;
-      }
-    }
-    cp_async_wait<1>();                   // chunk j has landed
-    __syncthreads();                      // for every thread; chunk j - 1's slot is free
-    if (j + 2 < nchunks) load_chunk(j + 2);
-    cp_async_commit();
-    const bf16* wb = ring + (j % kStages) * kKC * kWS;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 16; ++ks) {
-      const int k = kc * kKC + ks * 16;   // K = (tap, channel); cp % 16 == 0
-      const int tap = k / cp;
-      const int c = k - tap * cp;
-      const int toff = (tap >> 1) * kLW + (tap & 1);
-      uint32_t a[kWarpMT][4];
-#pragma unroll
-      for (int i = 0; i < kWarpMT; ++i) ldsm_x4(a[i], src + (cell0[i] + toff) * ss + c + acol);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bw[4];
-        ldsm_x4_trans(bw, wb + (ks * 16 + arow) * kWS + wn * 32 + np * 16 + acol);
-#pragma unroll
-        for (int i = 0; i < kWarpMT; ++i) {
-          mma_bf16(acc[i][2 * np], a[i], bw[0], bw[1]);
-          mma_bf16(acc[i][2 * np + 1], a[i], bw[2], bw[3]);
-        }
-      }
-    }
-    if (kc == nkc - 1) {                  // BN1 + ReLU + the image mask -> h
-#pragma unroll
-      for (int i = 0; i < kWarpMT; ++i)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int q = (wm * kWarpMT + i) * 16 + (lane >> 2) + 8 * hf;
-          if (q >= kPM) continue;
-          const int my = 2 * (q / kPW) + (p >> 1);
-          const int mx = 2 * (q % kPW) + (p & 1);
-          const int gy = y0 - 2 + my;
-          const int gx = x0 - 2 + mx;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-          bf16* hrow = hs + (my * kMW + mx) * kHS;
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const int n = wn * 32 + t * 8 + 2 * (lane & 3);
-            const float v0 = (inside && n < cm)
-                ? fmaxf(fmaf(acc[i][t][2 * hf], g1[n], b1[n]), 0.f) : 0.f;
-            const float v1 = (inside && n + 1 < cm)
-                ? fmaxf(fmaf(acc[i][t][2 * hf + 1], g1[n + 1], b1[n + 1]), 0.f) : 0.f;
-            *reinterpret_cast<__nv_bfloat162*>(hrow + n) = __floats2bfloat162_rn(v0, v1);
-          }
-        }
-    }
-  }
-  __syncthreads();                        // h complete; the source and the ring free
-
-  for (int e = tid; e < 25 * 64; e += kThreads) cp_async16(w1s + e * 8, w1k + e * 8, true);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // ---- refine1: warp w -> output pixels [64 w, 64 w + 64), all classes ----
   float acc1[4][4];
   int hpix[4];                            // the lane's A row: its pixel in h
 #pragma unroll
@@ -554,23 +517,120 @@ phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ ra
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc1[i][r] = 0.f;
   }
-  for (int tap = 0; tap < 25; ++tap) {
-    const int toff = (tap / 5) * kMW + tap % 5;
+
+  for (int pass = 0; pass < L::kPasses; ++pass) {
+    if (pass > 0) {                       // the ring is free: the last pass synced
+      load_chunk(pass, 0);
+      cp_async_commit();
+      load_chunk(pass, 1);
+      cp_async_commit();
+    }
+    // ---- refine0: phase by phase, warp (wm, wn) -> m16 tiles 3 wm + i, the
+    // pass's mid channels CMP / 2 wn + [0, CMP / 2) ---------------------------
+    const int wm = warp & 3;
+    const int wn = warp >> 2;
+    float acc[kWarpMT][L::kNT][4];
+    int cell0[kWarpMT];                   // the lane's A row: its window's first cell
+    for (int j = 0; j < nchunks; ++j) {
+      const int p = j / nkc;
+      const int kc = j - p * nkc;
+      if (kc == 0) {
 #pragma unroll
-    for (int kp = 0; kp < 2; ++kp) {
-      // rows k = 32 kp + lane of w1k: b for k16 steps 2 kp and 2 kp + 1
-      uint32_t bw[4];
-      ldsm_x4_trans(bw, w1s + (tap * 64 + kp * 32 + lane) * 8);
+        for (int i = 0; i < kWarpMT; ++i) {
+          int q = (wm * kWarpMT + i) * 16 + arow;
+          q = q < kPM ? q : 0;            // a padding row reads any cell
+          cell0[i] = (q / kPW + (p >> 1)) * kLW + q % kPW + (p & 1);
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
+          for (int t = 0; t < L::kNT; ++t)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][t][r] = 0.f;
+        }
+      }
+      cp_async_wait<1>();                 // chunk j has landed
+      __syncthreads();                    // for every thread; chunk j - 1's slot is free
+      if (j + 2 < nchunks) load_chunk(pass, j + 2);
+      cp_async_commit();
+      const bf16* wb = ring + (j % kStages) * kKC * kWS + wn * (CMP / 2);
+#pragma unroll
+      for (int ks = 0; ks < kKC / 16; ++ks) {
+        const int k = kc * kKC + ks * 16; // K = (tap, channel); cp % 16 == 0
+        const int tap = k / cp;
+        const int c = k - tap * cp;
+        const int toff = (tap >> 1) * kLW + (tap & 1);
+        uint32_t a[kWarpMT][4];
+#pragma unroll
+        for (int i = 0; i < kWarpMT; ++i) ldsm_x4(a[i], src + (cell0[i] + toff) * ss + c + acol);
+#pragma unroll
+        for (int np = 0; np < L::kNT / 2; ++np) {
+          uint32_t bw[4];
+          ldsm_x4_trans(bw, wb + (ks * 16 + arow) * kWS + np * 16 + acol);
+#pragma unroll
+          for (int i = 0; i < kWarpMT; ++i) {
+            mma_bf16(acc[i][2 * np], a[i], bw[0], bw[1]);
+            mma_bf16(acc[i][2 * np + 1], a[i], bw[2], bw[3]);
+          }
+        }
+        if (L::kNT % 2) {                 // an odd last n8 tile
+          uint32_t bw[2];
+          ldsm_x2_trans(bw, wb + (ks * 16 + arow) * kWS + (L::kNT - 1) * 8);
+#pragma unroll
+          for (int i = 0; i < kWarpMT; ++i) mma_bf16(acc[i][L::kNT - 1], a[i], bw[0], bw[1]);
+        }
+      }
+      if (kc == nkc - 1) {                // BN1 + ReLU + the image mask -> h
+#pragma unroll
+        for (int i = 0; i < kWarpMT; ++i)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int q = (wm * kWarpMT + i) * 16 + (lane >> 2) + 8 * hf;
+            if (q >= kPM) continue;
+            const int my = 2 * (q / kPW) + (p >> 1);
+            const int mx = 2 * (q % kPW) + (p & 1);
+            const int gy = y0 - 2 + my;
+            const int gx = x0 - 2 + mx;
+            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            bf16* hrow = hs + (my * kMW + mx) * kHS;
+#pragma unroll
+            for (int t = 0; t < L::kNT; ++t) {
+              const int n = wn * (CMP / 2) + t * 8 + 2 * (lane & 3);   // in the pass
+              const int ng = pass * CMP + n;
+              const float v0 = (inside && ng < cm)
+                  ? fmaxf(fmaf(acc[i][t][2 * hf], g1[ng], b1[ng]), 0.f) : 0.f;
+              const float v1 = (inside && ng + 1 < cm)
+                  ? fmaxf(fmaf(acc[i][t][2 * hf + 1], g1[ng + 1], b1[ng + 1]), 0.f) : 0.f;
+              *reinterpret_cast<__nv_bfloat162*>(hrow + n) = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+      }
+    }
+    __syncthreads();                      // h complete; the ring free
+
+    for (int e = tid; e < 25 * CMP; e += kThreads) {
+      const int tap = e / CMP;
+      const int r = e - tap * CMP;
+      cp_async16(w1s + e * 8, w1k + (static_cast<int64_t>(tap) * CMT + pass * CMP + r) * 8,
+                 true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- refine1: the pass's mid channels, K = 25 taps x CMP -------------
+    for (int tap = 0; tap < 25; ++tap) {
+      const int toff = (tap / 5) * kMW + tap % 5;
+#pragma unroll
+      for (int ks = 0; ks < CMP / 16; ++ks) {
+        uint32_t bw[2];
+        ldsm_x2_trans(bw, w1s + (tap * CMP + ks * 16 + arow) * 8);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           uint32_t a[4];
-          ldsm_x4(a, hs + (hpix[i] + toff) * kHS + (2 * kp + s) * 16 + acol);
-          mma_bf16(acc1[i], a, bw[2 * s], bw[2 * s + 1]);
+          ldsm_x4(a, hs + (hpix[i] + toff) * kHS + ks * 16 + acol);
+          mma_bf16(acc1[i], a, bw[0], bw[1]);
         }
       }
     }
+    __syncthreads();                      // h and the ring free for the next pass
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -587,40 +647,51 @@ phase_head_mma_kernel(const bf16* __restrict__ x_lo, const bf16* __restrict__ ra
     }
 }
 
+template <int KCS, int CMT, int CMP>
 int run_head_bf16(const void* x_lo, const void* raw, const float* g0, const float* b0,
                   const void* w0k, const float* g1, const float* b1, const void* w1k,
                   void* out, int B, int hh, int hw, int c_up, int rc, int cm, int nc,
                   cudaStream_t s) {
-  if (((c_up + 4 * rc + 15) & ~15) > kCSrcMax) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t kSmem = HeadLayout<KCS, CMT, CMP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      phase_head_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      phase_head_mma_kernel<KCS, CMT, CMP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int H = 2 * hh;
   const int W = 2 * hw;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  phase_head_mma_kernel<<<grid, kThreads, kSmem, s>>>(
+  phase_head_mma_kernel<KCS, CMT, CMP><<<grid, kThreads, kSmem, s>>>(
       static_cast<const bf16*>(x_lo), static_cast<const bf16*>(raw), g0, b0,
       static_cast<const bf16*>(w0k), g1, b1, static_cast<const bf16*>(w1k),
       static_cast<bf16*>(out), H, W, c_up, rc, cm, nc);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The layout of a head (ops/phase_head.py::bf16_layout): 0 = <192, 64, 64>,
+// 1 = <256, 96, 48>, -1 = none takes it.
+int layout_of(int c_src, int cm) {
+  const int cp = (c_src + 15) & ~15;
+  if (cp <= 192 && cm <= 64) return 0;
+  if (cp <= 256 && cm <= 96) return 1;
+  return -1;
+}
+
 }  // namespace tc
 
+template <int CMMax>
 int run_head_f32(const void* x_lo, const void* raw, const float* g0, const float* b0,
                  const float* w0p, const float* g1, const float* b1, const void* w1,
                  void* out, int B, int hh, int hw, int c_up, int rc, int cm, int nc,
                  cudaStream_t s) {
-  const size_t smem = smem_bytes<float>();
+  const size_t smem = smem_bytes<float, CMMax>();
   cudaError_t err = cudaFuncSetAttribute(
-      phase_head_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      phase_head_kernel<float, CMMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int H = 2 * hh;
   const int W = 2 * hw;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  phase_head_kernel<float><<<grid, kThreads, smem, s>>>(
+  phase_head_kernel<float, CMMax><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(x_lo), static_cast<const float*>(raw), g0, b0, w0p, g1,
       b1, static_cast<const float*>(w1), static_cast<float*>(out), H, W, c_up, rc, cm,
       nc);
@@ -639,7 +710,7 @@ extern "C" int dmm_phase_head(const void* x_lo, const void* raw, const void* g0,
                               int hh, int hw, int c_up, int rc, int cm, int nc,
                               int dtype, void* stream) {
   if (B <= 0 || B > 65535 || hh <= 0 || hw <= 0 || c_up < 0 || rc < 0 ||
-      c_up + rc <= 0 || cm <= 0 || cm > kCMMax || nc <= 0 || nc > kNCMax ||
+      c_up + rc <= 0 || cm <= 0 || cm > kCMMaxWide || nc <= 0 || nc > kNCMax ||
       (2 * hh + kTH - 1) / kTH > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -648,17 +719,35 @@ extern "C" int dmm_phase_head(const void* x_lo, const void* raw, const void* g0,
   const float* f_b0 = static_cast<const float*>(b0);
   const float* f_g1 = static_cast<const float*>(g1);
   const float* f_b1 = static_cast<const float*>(b1);
+  const float* f_w0 = static_cast<const float*>(w0);
   switch (dtype) {
     case 0:
-      return run_head_f32(x_lo, raw, f_g0, f_b0, static_cast<const float*>(w0), f_g1,
-                          f_b1, w1, out, B, hh, hw, c_up, rc, cm, nc, s);
+      return cm <= 64 ? run_head_f32<64>(x_lo, raw, f_g0, f_b0, f_w0, f_g1, f_b1, w1, out, B,
+                                         hh, hw, c_up, rc, cm, nc, s)
+                      : run_head_f32<96>(x_lo, raw, f_g0, f_b0, f_w0, f_g1, f_b1, w1, out, B,
+                                         hh, hw, c_up, rc, cm, nc, s);
     case 1:
-      return tc::run_head_bf16(x_lo, raw, f_g0, f_b0, w0, f_g1, f_b1, w1, out, B, hh, hw,
-                           c_up, rc, cm, nc, s);
+      switch (tc::layout_of(c_up + 4 * rc, cm)) {
+        case 0:
+          return tc::run_head_bf16<192, 64, 64>(x_lo, raw, f_g0, f_b0, w0, f_g1, f_b1, w1,
+                                                out, B, hh, hw, c_up, rc, cm, nc, s);
+        case 1:
+          return tc::run_head_bf16<256, 96, 48>(x_lo, raw, f_g0, f_b0, w0, f_g1, f_b1, w1,
+                                                out, B, hh, hw, c_up, rc, cm, nc, s);
+        default:
+          return static_cast<int>(cudaErrorInvalidValue);
+      }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The bf16 kernel's dynamic shared memory per block.
-extern "C" int dmm_phase_head_mma_smem() { return static_cast<int>(tc::kSmem); }
+// The bf16 kernel's dynamic shared memory per block for a head of c_src
+// source and cm mid channels (its layout's), 0 if no layout takes it.
+extern "C" int dmm_phase_head_mma_smem(int c_src, int cm) {
+  switch (tc::layout_of(c_src, cm)) {
+    case 0: return static_cast<int>(tc::HeadLayout<192, 64, 64>::kSmem);
+    case 1: return static_cast<int>(tc::HeadLayout<256, 96, 48>::kSmem);
+    default: return 0;
+  }
+}

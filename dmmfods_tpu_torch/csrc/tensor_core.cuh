@@ -4,7 +4,8 @@
 //
 //   cp.async of 16 or 8 bytes global -> shared (zero-filled when `valid` is
 //   false),
-//   ldmatrix of four 8x8 bf16 matrices (plain or transposed),
+//   ldmatrix of four 8x8 bf16 matrices (plain or transposed) or of two
+//   (transposed),
 //   mma.sync m16n8k16, bf16 inputs, f32 accumulation.
 //
 // Fragment layouts are PTX's for mma.m16n8k16 .row.col. With `lane` the
@@ -13,7 +14,8 @@
 //     address at row (lane % 16), column (lane / 16) * 8 of the tile;
 //   * B (16 x 16 as k x n, n contiguous in shared memory): ldsm_x4_trans with
 //     the lane's address at row k = lane % 16, column n = (lane / 16) * 8;
-//     b[0..1] are the first n8 tile's fragment, b[2..3] the second's;
+//     b[0..1] are the first n8 tile's fragment, b[2..3] the second's; or one
+//     n8 tile by ldsm_x2_trans, lanes 0-15 addressing rows k = lane % 16;
 //   * C (16 x 8): c[0], c[1] at row lane / 4, columns 2 (lane % 4) and + 1;
 //     c[2], c[3] the same columns at row lane / 4 + 8.
 #pragma once
@@ -60,6 +62,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
 }
 
 // d += a @ b: one m16n8k16 product, bf16 operands, f32 accumulators

@@ -9,13 +9,15 @@ the module names are the JAX model's; the module names are also the
 reference torch network's, so ``dmmfods_tpu.models.torch_port`` maps this
 model's ``state_dict`` onto the JAX variables key for key.
 
-Only the math is ported, plus the kernels of the eval path. The JAX
-model's TPU lowering options (rows-as-batch forms, dense-block buffers, the
-XLA forms of the phase-space head) have no counterpart here: each one
-computes the plain form below. In eval mode four modules hand their work to
-a hand-written CUDA kernel (the plain version on a CPU tensor):
+Only the math is ported, plus the kernels of the eval path and the
+phase-space head. The JAX model's TPU lowering options (rows-as-batch
+forms, dense-block buffers, the ``rows`` and ``single`` eval forms of the
+phase-space head) have no counterpart here: each one computes the form
+below. In eval mode four modules hand their work to a hand-written CUDA
+kernel (the plain version on a CPU tensor):
 
-* ``ConcatFuse``: K1, :func:`..ops.fused.concat_bn_relu_conv1x1`, always;
+* ``ConcatFuse``: K1, :func:`..ops.fused.concat_bn_relu_conv1x1`, with
+  ``gpu.use_fused_kernels`` (JAX's ``tpu.use_fused_kernels``);
 * ``DenseBlock``: at batch 1 on planes of at least ``STRIP_MIN_PIXELS``
   pixels that JAX's strip gate takes (``ops.dense_block_strip.eligible``),
   K2, :func:`..ops.dense_block_strip.dense_block_strip`, or with
@@ -27,26 +29,31 @@ a hand-written CUDA kernel (the plain version on a CPU tensor):
 * ``Encoder``: K6, :func:`..ops.stem_pool.stem_pool`, for conv0 + norm0 +
   ReLU + pool0 at batch 1, where ``gpu.stem_pool_strip`` is ``on`` and
   JAX's regime takes the shape (:func:`_stem_pool_ok`);
-* ``Head``: K3, :func:`..ops.phase_head.phase_head`, at batch 1 on output
-  planes of more than ``HEAD_KERNEL_MIN_PIXELS`` pixels.
+* ``Head``: K3, :func:`..ops.phase_head.phase_head`, with
+  ``gpu.use_fused_kernels``, at batch 1 on output planes of more than
+  ``HEAD_KERNEL_MIN_PIXELS`` pixels (and of at most
+  ``gpu.fused_head_max_pixels``); other eval calls run the phase-space head
+  in stock PyTorch (:func:`..ops.phase_head.phase_space_head`), with the
+  switch, and the plain head without it.
 
 The strip, K4 and K6 gates are JAX's own decisions, its TPU cost models
 included, kept so that both packages run those kernels on the same shapes;
 a kernel with no JAX gate to match needs no such model. The strip, K4 and
 head gates also require their CUDA kernels' own limits (growth <= 48 and K
-<= 192 for the blocks, which every DenseNet of the repo meets; c_mid and
-classes for the head). An architecture past them runs the plain loop and
-head, chosen by shape, where JAX runs its kernels: DenseNet-161's head
-(c_mid 96) is such a gap, open kernel work in ``ROADMAP.md`` section 2,
-while its blocks run K2, K4 and K5 where JAX's do. Each gate takes
+<= 192 for the blocks; c_mid <= 96, classes <= 8 and, in bf16, a source
+c_up + 4 rc <= 256 for the head), which every DenseNet of the repo meets,
+so the port's decisions are JAX's; an architecture past them runs the plain
+loop or the phase-space head, chosen by shape. Each gate takes
 ``kernel_limits=False`` to give JAX's decision alone.
 
-With the default config, at the 128x192 working resolution only K1
-engages; at 1280x1920 batch 1 the blocks 1 and 2 of both streams (K2) and
-the head (DenseNet-121's; not DenseNet-161's) do too. The opt-ins add K4 on
-the 128x192 blocks (DenseNet-121: three block calls at b1, four at b8, five
-from b32; DenseNet-161: three at every batch), K6 on both stems at b1, and
-K5 in place of K2 at 1280x1920.
+With the default config, at the 128x192 working resolution K1 engages and
+the head runs in phase space; at 1280x1920 batch 1 the blocks 1 and 2 of
+both streams (K2) and the head (K3) do too, DenseNet-161's included. The
+opt-ins add K4 on the 128x192 blocks (DenseNet-121: three block calls at
+b1, four at b8, five from b32; DenseNet-161: three at every batch), K6 on
+both stems at b1, and K5 in place of K2 at 1280x1920. Train mode runs no
+kernel, as in JAX, and the plain head where JAX runs its phase-space train
+head (``Head``).
 
 Layout: :meth:`DenseUNetLidar.forward` takes and returns NHWC tensors, like
 the JAX model. Inside, tensors are NCHW in shape and ``channels_last`` in
@@ -78,9 +85,9 @@ from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompu
 from ..ops.dense_block_strip import eligible as strip_eligible
 from ..ops.dense_block_strip import pack_layer_weights
 from ..ops.fused import concat_bn_relu_conv1x1, fold_bn, fuse_operands
-from ..ops.phase_head import MAX_CLASSES, MAX_MID, MAX_SOURCE_BF16
 from ..ops.phase_head import kernel_weights as phase_head_weights
-from ..ops.phase_head import phase_head
+from ..ops.phase_head import phase_head, phase_space_head, phase_space_weights
+from ..ops.phase_head import within_limits as phase_head_within_limits
 from ..ops.stem_pool import eligible as stem_pool_eligible
 from ..ops.stem_pool import pack_stem_weights, stem_pool
 
@@ -118,7 +125,8 @@ class ModelSpec:
     ``num_layers_before_blocks`` and ``memory_efficient`` of the config
     change nothing in the math and are not read. ``dense_block_impl``,
     ``dense_block_strip`` and ``stem_pool_strip`` select K4, K2 or K5, and
-    K6 (``config.py``)."""
+    K6; ``use_fused_kernels`` and ``fused_head_max_pixels`` K1 and the
+    head's phase-space forms and K3 (``config.py``)."""
 
     growth_rate: int = 32
     block_config: Tuple[int, ...] = (6, 12, 24, 16)
@@ -133,6 +141,8 @@ class ModelSpec:
     dense_block_impl: str = "concat,concat,buffer,buffer"
     dense_block_strip: str = "auto"
     stem_pool_strip: str = "auto"
+    use_fused_kernels: bool = True
+    fused_head_max_pixels: int = 1 << 62
 
     def __post_init__(self):
         for i in range(len(self.block_config)):
@@ -179,6 +189,10 @@ class ModelSpec:
                 "dense_block_strip", cls.dense_block_strip))
             kwargs["stem_pool_strip"] = str(gpu.get(
                 "stem_pool_strip", cls.stem_pool_strip))
+            kwargs["use_fused_kernels"] = bool(gpu.get(
+                "use_fused_kernels", cls.use_fused_kernels))
+            kwargs["fused_head_max_pixels"] = int(gpu.get(
+                "fused_head_max_pixels", cls.fused_head_max_pixels))
         kwargs.update(overrides)
         return cls(**kwargs)
 
@@ -474,20 +488,22 @@ class ConcatFuse(nn.Module):
     """Mid-fusion block: BN(2C)-ReLU-Conv1x1(2C -> C) over the channel concat
     of the two streams (the reference's ``concat_module``).
 
-    Eval runs the fused kernel K1 (:func:`..ops.fused.concat_bn_relu_conv1x1`)
-    on NHWC views of the two streams, so the concat never exists, on
-    operands kept per fold (:meth:`_fuse_operands`); train runs the plain
-    cat-BN-ReLU-conv with batch statistics.
+    Eval with ``use_fused`` (``gpu.use_fused_kernels``) runs the fused kernel
+    K1 (:func:`..ops.fused.concat_bn_relu_conv1x1`) on NHWC views of the two
+    streams, so the concat never exists, on operands kept per fold
+    (:meth:`_fuse_operands`); without it, and in train mode (batch
+    statistics), the plain cat-BN-ReLU-conv runs.
     """
 
-    def __init__(self, num_features):
+    def __init__(self, num_features, *, use_fused=True):
         super().__init__()
+        self.use_fused = use_fused
         self._fuse = None                     # (key, dtype, K1's operands)
         self.norm = _batch_norm(2 * num_features)
         self.conv = nn.Conv2d(2 * num_features, num_features, 1, bias=False)
 
     def forward(self, a, b):
-        if self.training:
+        if self.training or not self.use_fused:
             return _conv(_bn_relu(torch.cat([a, b], dim=1), self.norm), self.conv)
         out = concat_bn_relu_conv1x1(
             a.permute(0, 2, 3, 1).contiguous(), b.permute(0, 2, 3, 1).contiguous(),
@@ -585,17 +601,32 @@ class Head(nn.Module):
     """Heat-map logits: nearest 2x upsample, concat with the raw network
     input, then BN-ReLU-Conv3x3-BN-ReLU-Conv5x5 (``dec_out_to_heat_maps``).
 
-    Eval at batch 1 on a big plane runs the whole head as K3
-    (:func:`..ops.phase_head.phase_head`) on NHWC views, so the upsample,
-    the concat and the mid tensor never exist in memory. On the card its
-    folded weights are kept between calls and folded again when the refine
-    weights change (replaced, moved or edited in place: :func:`_same_tensors`)
+    Dispatched as JAX's ``Head``. With ``use_fused`` (``gpu.use_fused_kernels``)
+    and at most ``fused_max_pixels`` output pixels:
+
+    * eval at batch 1 on a plane of more than ``HEAD_KERNEL_MIN_PIXELS``
+      pixels, within K3's limits: K3 (:func:`..ops.phase_head.phase_head`) on
+      NHWC views, so the upsample, the concat and the mid tensor never exist
+      in memory;
+    * other eval calls: the phase-space head
+      (:func:`..ops.phase_head.phase_space_head`), BN folded from the
+      running stats.
+
+    Otherwise, and in train mode, the plain head runs (JAX trains with its
+    phase-space train head, ``Head._phase_head_train``, the same function:
+    not ported, ``ROADMAP.md``). The folded weights of K3 and of the eval
+    phase-space head are kept between calls and folded again when a refine
+    weight changes (replaced, moved or edited in place: :func:`_same_tensors`)
     or the dtype does."""
 
-    def __init__(self, up_channels, raw_channels, mid_features, num_classes):
+    def __init__(self, up_channels, raw_channels, mid_features, num_classes, *,
+                 use_fused=True, fused_max_pixels=1 << 62):
         super().__init__()
         self.up_channels = up_channels
+        self.use_fused = use_fused
+        self.fused_max_pixels = fused_max_pixels
         self._k3_weights = None               # (dtype, key, kernel_weights(...))
+        self._phase_weights = None            # (dtype, key, phase_space_weights(...))
         self.norm0 = _batch_norm(up_channels + raw_channels)
         self.refine0 = nn.Conv2d(up_channels + raw_channels, mid_features, 3,
                                  padding=1, bias=False)
@@ -603,16 +634,19 @@ class Head(nn.Module):
         self.refine1 = nn.Conv2d(mid_features, num_classes, 5, padding=2, bias=False)
 
     def forward(self, x_lo, raw):
-        if self._kernel_eligible(x_lo, raw):
+        if not self.training and self._fused_eligible(x_lo, raw):
             n0, n1 = self.norm0, self.norm1
             g0, b0 = fold_bn(n0.weight, n0.bias, n0.running_mean, n0.running_var, n0.eps)
             g1, b1 = fold_bn(n1.weight, n1.bias, n1.running_mean, n1.running_var, n1.eps)
-            out = phase_head(x_lo.permute(0, 2, 3, 1).contiguous(),
-                             raw.permute(0, 2, 3, 1).contiguous(),
-                             g0=g0, b0=b0, w0=self.refine0.weight,
-                             g1=g1, b1=b1, w1=self.refine1.weight,
-                             weights=self._kernel_weights(x_lo) if x_lo.is_cuda else None)
-            return out.permute(0, 3, 1, 2)
+            if self._kernel_eligible(x_lo, raw):
+                out = phase_head(x_lo.permute(0, 2, 3, 1).contiguous(),
+                                 raw.permute(0, 2, 3, 1).contiguous(),
+                                 g0=g0, b0=b0, w0=self.refine0.weight,
+                                 g1=g1, b1=b1, w1=self.refine1.weight,
+                                 weights=self._kernel_weights(x_lo) if x_lo.is_cuda else None)
+                return out.permute(0, 3, 1, 2)
+            w0t, w4t = self._phase_space_weights(x_lo.dtype)
+            return phase_space_head(x_lo, raw, g0=g0, b0=b0, g1=g1, b1=b1, w0t=w0t, w4t=w4t)
         x = torch.cat([F.interpolate(x_lo, scale_factor=2, mode="nearest"), raw], dim=1)
         x = _conv(_bn_relu(x, self.norm0), self.refine0)
         return _conv(_bn_relu(x, self.norm1), self.refine1)
@@ -630,22 +664,39 @@ class Head(nn.Module):
             self._k3_weights = (x_lo.dtype, _fold_key((w0, w1)), weights)
         return self._k3_weights[2]
 
-    def _kernel_eligible(self, x_lo, raw, kernel_limits=True) -> bool:
-        """JAX's gate (eval, batch 1, a plane of more than
-        ``HEAD_KERNEL_MIN_PIXELS``) and, with ``kernel_limits``, the kernel's
-        own limits: ``c_mid <= MAX_MID``, at most ``MAX_CLASSES`` classes and,
-        in bf16, ``c_up + 4 rc <= MAX_SOURCE_BF16``. A head past them runs the
-        plain head, by shape, where JAX runs its kernel (DenseNet-161's c_mid
-        96: open kernel work)."""
+    def _phase_space_weights(self, dtype):
+        """The eval phase-space head's ``(w0t, w4t)`` in ``dtype``
+        (:func:`..ops.phase_head.phase_space_weights`, folded in f32), kept
+        as :meth:`_kernel_weights` keeps K3's."""
+        w0, w1 = self.refine0.weight, self.refine1.weight
+        cached = self._phase_weights
+        if cached is None or cached[0] != dtype or not _same_tensors(cached[1], (w0, w1)):
+            with torch.no_grad():
+                weights = tuple(w.to(dtype) for w in
+                                phase_space_weights(w0, w1, self.up_channels))
+            self._phase_weights = (dtype, _fold_key((w0, w1)), weights)
+        return self._phase_weights[2]
+
+    def _fused_eligible(self, x_lo, raw) -> bool:
+        """JAX's ``Head._fused_eligible``: ``use_fused``, the raw plane twice
+        ``x_lo``'s and at most ``fused_max_pixels`` pixels."""
         h, w = raw.shape[-2:]
-        within = not kernel_limits or (
-            self.refine0.out_channels <= MAX_MID
-            and self.refine1.out_channels <= MAX_CLASSES
-            and (x_lo.dtype != torch.bfloat16
-                 or self.up_channels + 4 * raw.shape[1] <= MAX_SOURCE_BF16))
-        return (within and not self.training and raw.shape[0] == 1
-                and h * w > HEAD_KERNEL_MIN_PIXELS
-                and (h, w) == (2 * x_lo.shape[-2], 2 * x_lo.shape[-1]))
+        return (self.use_fused and (h, w) == (2 * x_lo.shape[-2], 2 * x_lo.shape[-1])
+                and h * w <= self.fused_max_pixels)
+
+    def _kernel_eligible(self, x_lo, raw, kernel_limits=True) -> bool:
+        """JAX's K3 gate (the fused head, eval, batch 1, a plane of more than
+        ``HEAD_KERNEL_MIN_PIXELS``) and, with ``kernel_limits``, the kernel's
+        own limits (:func:`..ops.phase_head.within_limits`: c_mid, classes
+        and, in bf16, the source's width). A head past them runs the
+        phase-space head where JAX runs its kernel; every DenseNet's head of
+        the repo is within them."""
+        h, w = raw.shape[-2:]
+        within = not kernel_limits or phase_head_within_limits(
+            self.up_channels + 4 * raw.shape[1], self.refine0.out_channels,
+            self.refine1.out_channels, x_lo.dtype)
+        return (within and self._fused_eligible(x_lo, raw) and not self.training
+                and raw.shape[0] == 1 and h * w > HEAD_KERNEL_MIN_PIXELS)
 
 
 # ---------------------------------------------------------------------------
@@ -692,12 +743,15 @@ class DenseUNetLidar(nn.Module):
             self.stream_2_features = Encoder(
                 spec, spec.stream_2_in_channels,
                 up_to_block=spec.concat_before_block_num)
-            self.concat_module = ConcatFuse(self.stream_2_features.num_features)
+            self.concat_module = ConcatFuse(self.stream_2_features.num_features,
+                                            use_fused=spec.use_fused_kernels)
         self.decoder = Decoder(spec)
         raw_channels = spec.stream_1_in_channels + (
             spec.stream_2_in_channels if fusion != "no" else 0)
         up = spec.decoder_stage_features()[-1]
-        self.dec_out_to_heat_maps = Head(up, raw_channels, up // 2, spec.num_classes)
+        self.dec_out_to_heat_maps = Head(
+            up, raw_channels, up // 2, spec.num_classes, use_fused=spec.use_fused_kernels,
+            fused_max_pixels=spec.fused_head_max_pixels)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)

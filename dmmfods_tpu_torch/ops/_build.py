@@ -131,7 +131,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
     fn = lib.dmm_phase_head_mma_smem
-    fn.argtypes = []
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
     fn = lib.dmm_stem_pool_mma_smem
     fn.argtypes = [ctypes.c_int]

@@ -83,6 +83,37 @@ def test_port_config_round_trips(tmp_path):
     assert jax_config.get_config(str(tmp_path)).to_dict() == back.to_dict()
 
 
+def test_fused_kernel_keys_default_load_and_round_trip(tmp_path):
+    """``gpu.use_fused_kernels`` and ``gpu.fused_head_max_pixels`` default to
+    JAX's ``tpu`` values, a saved port config without them gains them on
+    load, and set values survive a save and load into ``ModelSpec``."""
+    cfg = config.get_config(str(tmp_path))
+    jax_tpu = jax_config.create_config(str(tmp_path))["tpu"]
+    assert cfg.gpu.use_fused_kernels is jax_tpu["use_fused_kernels"] is True
+    assert cfg.gpu.fused_head_max_pixels == 1 << 62
+    spec = pm.ModelSpec.from_config(cfg)
+    assert spec.use_fused_kernels is True and spec.fused_head_max_pixels == 1 << 62
+    del cfg.gpu["use_fused_kernels"], cfg.gpu["fused_head_max_pixels"]
+    cfg.gpu.dense_block_strip = "on"
+    config.save_config(cfg)
+    older = config.get_config(str(tmp_path))
+    assert older.gpu == {**config.GPU_DEFAULTS, "dense_block_strip": "on"}
+    older.gpu.use_fused_kernels = False
+    older.gpu.fused_head_max_pixels = 98304
+    config.save_config(older)
+    back = config.get_config(str(tmp_path))
+    assert back.to_dict() == _plain(older.to_dict())
+    spec = pm.ModelSpec.from_config(back)
+    assert (spec.use_fused_kernels, spec.fused_head_max_pixels, spec.dense_block_strip) == \
+        (False, 98304, "on")
+    model = pm.DenseUNetLidar(pm.ModelSpec(growth_rate=8, block_config=(2, 2, 2, 2),
+                                           num_init_features=16, use_fused_kernels=False,
+                                           fused_head_max_pixels=98304))
+    assert not model.concat_module.use_fused
+    head = model.dec_out_to_heat_maps
+    assert not head.use_fused and head.fused_max_pixels == 98304
+
+
 def test_save_config_writes_the_tree(tmp_path):
     tree = config.create_config(str(tmp_path))
     config.save_config(config.EDict(tree))

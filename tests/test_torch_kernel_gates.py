@@ -8,12 +8,14 @@ padded layouts: (K 128, G 32) for DenseNet-121, -169 and -201, (K 192, G
 DenseNet-161 dense block the port's strip and K4 gates give JAX's decision,
 held here against the JAX package's own gates in bf16 and f32, every
 DenseNet-121 decision stays JAX's, and growth 64 (K 256) is refused by
-shape: the plain loop runs there. K3 is narrower (c_mid <= 64): the port's
-head gate refuses DenseNet-161's head (c_mid 96), which JAX's takes, and
-``kernel_limits=False`` gives JAX's decision alone, so that gap stays
-visible. On the CPU the kernels' wrappers run their plain versions, so an
-eval growth-48 block is held against the model's plain loop, with the
-wrappers spied on to show they are called."""
+shape: the plain loop runs there. K3 takes c_mid <= 96 and, in bf16, a
+source c_up + 4 rc <= 256 (two layouts, ``ops/phase_head.py::LAYOUTS_BF16``):
+its gate takes DenseNet-121's and DenseNet-161's heads (c_mid 96, source
+208) in both dtypes, as JAX's gate (``kernel_limits=False``) does, refuses a
+head past those limits (the phase-space head runs there), and takes nothing
+with ``use_fused_kernels`` off. On the CPU the kernels' wrappers run their
+plain versions, so an eval growth-48 block is held against the model's
+plain loop, with the wrappers spied on to show they are called."""
 
 import pytest
 import torch
@@ -23,7 +25,7 @@ from dmmfods_tpu.ops.pallas import dense_block_strip as jax_k2
 from dmmfods_tpu_torch.models import dense_unet_lidar as pm
 from dmmfods_tpu_torch.ops import dense_block as k4
 from dmmfods_tpu_torch.ops import dense_block_strip as k2
-from dmmfods_tpu_torch.ops.phase_head import MAX_MID, MAX_SOURCE_BF16
+from dmmfods_tpu_torch.ops.phase_head import MAX_MID, MAX_SOURCE_BF16, bf16_layout
 
 BN_SIZE = 4
 # 1280x1920 at batch 1: DenseNet-161's four dense blocks (h, w, c0, layers)
@@ -166,16 +168,28 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_head_gate_knows_the_kernel_limits(dtype):
     """At 1280x1920 batch 1 in eval: DenseNet-121's head (c_up 128, 4 raw
-    channels, c_mid 64) takes K3; DenseNet-161's (c_up 192, c_mid 96) does
-    not; c_mid 64 with c_up 192 only in f32 (in bf16 c_up + 4 rc = 208)."""
+    channels, c_mid 64) and DenseNet-161's (c_up 192, c_mid 96: source 208)
+    take K3, as JAX's gate does; c_mid 128, 9 classes and, in bf16 only, a
+    source past 256 do not; with ``use_fused_kernels`` off nothing does."""
     x_lo, raw = _meta(1, 128, 640, 960, dtype=dtype), _meta(1, 4, 1280, 1920, dtype=dtype)
     x_lo161 = _meta(1, 192, 640, 960, dtype=dtype)
-    assert pm.Head(128, 4, 64, 3).eval()._kernel_eligible(x_lo, raw)
-    assert 96 > MAX_MID and 192 + 4 * 4 > MAX_SOURCE_BF16
-    assert not pm.Head(192, 4, 96, 3).eval()._kernel_eligible(x_lo161, raw)
-    # JAX's gate alone takes DenseNet-161's head (the gap)
-    assert pm.Head(192, 4, 96, 3).eval()._kernel_eligible(x_lo161, raw, kernel_limits=False)
-    assert not pm.Head(128, 4, 96, 3).eval()._kernel_eligible(x_lo, raw)
+    x_lo_wide = _meta(1, MAX_SOURCE_BF16 - 16 + 4, 640, 960, dtype=dtype)  # source 260
+    assert MAX_MID == 96 and MAX_SOURCE_BF16 == 256
+    assert bf16_layout(128 + 4 * 4, 64) == (192, 64, 64)
+    assert bf16_layout(192 + 4 * 4, 96) == (256, 96, 48)
+    for head, x in ((pm.Head(128, 4, 64, 3), x_lo), (pm.Head(192, 4, 96, 3), x_lo161)):
+        head.eval()
+        assert head._kernel_eligible(x, raw)
+        assert head._kernel_eligible(x, raw) == head._kernel_eligible(x, raw, kernel_limits=False)
+    assert not pm.Head(128, 4, 128, 3).eval()._kernel_eligible(x_lo, raw)
+    assert pm.Head(128, 4, 128, 3).eval()._kernel_eligible(x_lo, raw, kernel_limits=False)
     assert not pm.Head(128, 4, 64, 9).eval()._kernel_eligible(x_lo, raw)
-    assert pm.Head(192, 4, 64, 3).eval()._kernel_eligible(x_lo161, raw) == (
+    assert pm.Head(244, 4, 64, 3).eval()._kernel_eligible(x_lo_wide, raw) == (
         dtype == torch.float32)
+    for head, x in ((pm.Head(128, 4, 64, 3, use_fused=False), x_lo),
+                    (pm.Head(192, 4, 96, 3, use_fused=False), x_lo161)):
+        head.eval()
+        assert not head._kernel_eligible(x, raw)
+        assert not head._kernel_eligible(x, raw, kernel_limits=False)
+    assert not pm.Head(128, 4, 64, 3, fused_max_pixels=1280 * 1920 - 1).eval(
+        )._kernel_eligible(x_lo, raw)

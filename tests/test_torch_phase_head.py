@@ -3,13 +3,15 @@ plain version against the JAX strip head (``phase_space_head(...,
 refine1_impl="strip")``, the Pallas kernel in interpret mode off the TPU),
 the kernel's phase-space refine0 weights (``fold_phase_head_weights``)
 against JAX's, the bf16 kernel's weight layout (``pack_phase_head_weights``)
-against the fold, the eval ``Head``'s dispatch against its plain form and its
-cache of the folded weights, the wrapper's argument checks, and that a CPU
-tensor takes the plain version.
+against the fold in both of its layouts (DenseNet-121's narrow one and the
+wide one of DenseNet-161's c_mid 96 and source 208), the eval ``Head``'s
+dispatch against its plain form and its cache of the folded weights, the
+wrapper's argument checks, and that a CPU tensor takes the plain version.
 All in f32 at batch 1; tolerance atol 2e-4, the JAX head test's own (the JAX
 side sums its collapsed phase-space weights in another order). The kernel itself runs
 only on the card: ``test_kernel_matches_plain_on_cuda`` skips without one,
-and ``chip_smoke.py`` checks it at the 1280x1920 shape."""
+and ``chip_smoke.py`` checks it at DenseNet-121's and DenseNet-161's
+1280x1920 heads."""
 
 import numpy as np
 import pytest
@@ -57,6 +59,8 @@ def _port_args(case):
 @pytest.mark.parametrize("hh,hw,c_up,rc,c_mid,n_cls", [
     (8, 12, 32, 4, 16, 3),      # tests/test_fused.py's head at B = 1
     (16, 10, 24, 3, 20, 2),     # other widths, two strips
+    (8, 12, 192, 4, 96, 3),     # DenseNet-161's head widths (source 208)
+    (8, 13, 200, 3, 90, 5),     # wide and ragged: source 212, c_mid 90, odd width
 ])
 def test_plain_version_matches_jax_strip_head(hh, hw, c_up, rc, c_mid, n_cls):
     case = _case(np.random.default_rng(0), hh, hw, c_up, rc, c_mid, n_cls)
@@ -86,21 +90,25 @@ def test_fold_phase_head_weights_matches_jax(c_up, rc):
 def _unpack_phase_head_weights(w0k, w1k, c_src, c_mid, n_cls):
     """pack_phase_head_weights undone, in f32: (w0p, w1) in the layouts it
     took."""
-    cp = w0k.shape[1] // 4
-    w0 = w0k.float().reshape(4, 4, cp, 64)[:, :, :c_src, :c_mid]
+    cp, cmp = w0k.shape[1] // 4, w0k.shape[2]
+    w0 = w0k.float().reshape(4, 4, cp, cmp)[:, :, :c_src, :c_mid]
     w0p = w0.permute(1, 2, 0, 3).reshape(2, 2, c_src, 4 * c_mid)
-    w1 = w1k.float().reshape(5, 5, 64, 8)[:, :, :c_mid, :n_cls].permute(3, 2, 0, 1)
+    w1 = w1k.float().reshape(5, 5, cmp, 8)[:, :, :c_mid, :n_cls].permute(3, 2, 0, 1)
     return w0p, w1
 
 
-@pytest.mark.parametrize("c_up,rc,c_mid,n_cls", [
-    (128, 4, 64, 3),            # the 1280x1920 head
-    (40, 3, 20, 3),             # c_src 52 -> 64, c_mid and classes padded
-    (40, 3, 64, 8),
+@pytest.mark.parametrize("c_up,rc,c_mid,n_cls,cmp", [
+    (128, 4, 64, 3, 64),        # DenseNet-121's 1280x1920 head: the narrow layout
+    (40, 3, 20, 3, 64),         # c_src 52 -> 64, c_mid and classes padded
+    (40, 3, 64, 8, 64),
+    (192, 4, 96, 3, 96),        # DenseNet-161's head: the wide layout (two passes of 48)
+    (200, 3, 90, 5, 96),        # c_src 212 -> 224, c_mid 90 -> 96
+    (192, 4, 64, 3, 96),        # c_mid 64 on a source past 192: the wide layout, padded
 ])
-def test_pack_phase_head_weights_unpacks_to_fold(c_up, rc, c_mid, n_cls):
+def test_pack_phase_head_weights_unpacks_to_fold(c_up, rc, c_mid, n_cls, cmp):
     """The bf16 kernel's layouts hold fold_phase_head_weights's w0p rounded
-    once to bf16 and w1 exactly, with zeros in every padding."""
+    once to bf16 and w1 exactly, with zeros in every padding, c_mid padded
+    to the mid channels of the layout that takes the shape."""
     rng = np.random.default_rng(9)
     w0 = torch.from_numpy(rng.normal(size=(c_mid, c_up + rc, 3, 3)).astype(np.float32))
     w1 = torch.from_numpy(rng.normal(size=(n_cls, c_mid, 5, 5)).astype(np.float32))
@@ -109,8 +117,9 @@ def test_pack_phase_head_weights_unpacks_to_fold(c_up, rc, c_mid, n_cls):
     w0k, w1k = k3.pack_phase_head_weights(w0p, w1)
     c_src = c_up + 4 * rc
     cp = -(-c_src // 16) * 16
+    assert k3.bf16_layout(c_src, c_mid)[1] == cmp
     assert w0k.dtype == w1k.dtype == torch.bfloat16
-    assert tuple(w0k.shape) == (4, 4 * cp, 64) and tuple(w1k.shape) == (25, 64, 8)
+    assert tuple(w0k.shape) == (4, 4 * cp, cmp) and tuple(w1k.shape) == (25, cmp, 8)
     got0, got1 = _unpack_phase_head_weights(w0k, w1k, c_src, c_mid, n_cls)
     torch.testing.assert_close(got0, w0p.to(torch.bfloat16).float(), atol=0, rtol=0)
     torch.testing.assert_close(got1, w1.float(), atol=0, rtol=0)
@@ -121,6 +130,18 @@ def test_pack_phase_head_weights_unpacks_to_fold(c_up, rc, c_mid, n_cls):
     r, s, c, p, n = 1, 0, c_src - 1, 3, c_mid - 1
     assert w0k[p, (2 * r + s) * cp + c, n] == w0p[r, s, c, p * c_mid + n].to(torch.bfloat16)
     assert w1k[5 * 4 + 2, c_mid - 1, n_cls - 1] == w1[n_cls - 1, c_mid - 1, 4, 2]
+
+
+@pytest.mark.parametrize("c_up,rc,c_mid,n_cls", [(256, 4, 64, 3), (40, 3, 128, 3),
+                                                 (40, 3, 20, 9)])
+def test_pack_refuses_shapes_no_layout_takes(c_up, rc, c_mid, n_cls):
+    """A source past 256 channels, c_mid past 96 or more than 8 classes: no
+    bf16 layout, so packing raises (and the gate sends the head elsewhere)."""
+    w0 = torch.zeros(c_mid, c_up + rc, 3, 3)
+    assert not k3.within_limits(c_up + 4 * rc, c_mid, n_cls, torch.bfloat16)
+    with pytest.raises(ValueError):
+        k3.pack_phase_head_weights(k3.fold_phase_head_weights(w0, c_up),
+                                   torch.zeros(n_cls, c_mid, 5, 5))
 
 
 def test_kernel_weights_per_dtype():
@@ -162,7 +183,9 @@ def test_eval_head_keeps_its_folded_weights():
 
 def test_eval_head_dispatch_matches_plain_form(monkeypatch):
     """Above the gate the eval head runs K3's wrapper (its plain version on
-    the CPU); below it, in train mode or at batch 2, the plain form."""
+    the CPU); below it and at batch 2 the phase-space head, in train mode
+    the plain head, never K3; each equal to the plain head (``use_fused =
+    False``, the upsample, concat and convs) on the same weights."""
     rng = np.random.default_rng(1)
     case = _case(rng, 6, 9, 12, 4, 8, 3)
     head = pm.Head(12, 4, 8, 3)
@@ -175,7 +198,10 @@ def test_eval_head_dispatch_matches_plain_form(monkeypatch):
             norm.running_var.copy_(torch.from_numpy(case[s]["var"]))
         head.refine0.weight.copy_(kw["w0"])
         head.refine1.weight.copy_(kw["w1"])
+    plain_head = pm.Head(12, 4, 8, 3, use_fused=False)
+    plain_head.load_state_dict(head.state_dict())
     head.eval()
+    plain_head.eval()
     calls = []
 
     def spy(*args, **kwargs):
@@ -184,19 +210,26 @@ def test_eval_head_dispatch_matches_plain_form(monkeypatch):
 
     monkeypatch.setattr(pm, "phase_head", spy)
     x_nchw, raw_nchw = x_lo.permute(0, 3, 1, 2), raw.permute(0, 3, 1, 2)
+    x2, raw2 = x_nchw.expand(2, -1, -1, -1), raw_nchw.expand(2, -1, -1, -1)
     with torch.no_grad():
-        plain = head(x_nchw, raw_nchw)
+        plain = plain_head(x_nchw, raw_nchw)
+        plain2 = plain_head(x2, raw2)
+        below = head(x_nchw, raw_nchw)
         assert calls == []                       # 216 px <= HEAD_KERNEL_MIN_PIXELS
         monkeypatch.setattr(pm, "HEAD_KERNEL_MIN_PIXELS", 12 * 18 - 1)
         got = head(x_nchw, raw_nchw)
         assert calls == [(1, 6, 9, 12)]
-        head(x_nchw.expand(2, -1, -1, -1), raw_nchw.expand(2, -1, -1, -1))
-        head.train()(x_nchw, raw_nchw)
-    assert len(calls) == 1
+        batch2 = head(x2, raw2)
+        train = head.train()(x_nchw, raw_nchw)
+        plain_train = plain_head.train()(x_nchw, raw_nchw)
+    assert calls == [(1, 6, 9, 12)]
     assert got.shape == (1, 3, 12, 18)
     torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
     torch.testing.assert_close(
         got.permute(0, 2, 3, 1), k3.phase_head_reference(x_lo, raw, **kw), atol=0, rtol=0)
+    torch.testing.assert_close(below, plain, atol=ATOL, rtol=0)
+    torch.testing.assert_close(batch2, plain2, atol=ATOL, rtol=0)
+    torch.testing.assert_close(train, plain_train, atol=0, rtol=0)
 
 
 def test_cpu_tensor_takes_the_plain_version():
@@ -250,7 +283,11 @@ def test_kernel_matches_plain_on_cuda():
     for shape, dtype, bound in [((13, 21, 40, 3, 20, 3), torch.float32, 1e-4),
                                 ((40, 60, 128, 4, 64, 3), torch.bfloat16, 1e-2),
                                 ((13, 21, 40, 3, 20, 3), torch.bfloat16, 1e-2),
-                                ((13, 21, 40, 3, 64, 8), torch.bfloat16, 1e-2)]:
+                                ((13, 21, 40, 3, 64, 8), torch.bfloat16, 1e-2),
+                                ((40, 60, 192, 4, 96, 3), torch.bfloat16, 1e-2),
+                                ((40, 60, 192, 4, 96, 3), torch.float32, 1e-4),
+                                ((13, 21, 200, 3, 90, 5), torch.bfloat16, 1e-2),
+                                ((9, 17, 240, 4, 96, 3), torch.bfloat16, 1e-2)]:
         (x_lo, raw), kw = _port_args(_case(np.random.default_rng(4), *shape))
         kw = {k: v.cuda() for k, v in kw.items()}
         kw["w0"] = kw["w0"].to(dtype).float()
