@@ -743,7 +743,8 @@ def _print_profile(tag, fn, event_ms, label, steps=3):
     enqueue_ms, events = _profile_calls(fn, steps)
     by_class, launches = {}, 0
     for ev in events:
-        if ev.device_type != DeviceType.CUDA:
+        # the program's spans land on the device's timeline as annotations
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
             continue
         name = ev.name.lower()
         cls = next((c for c, keys in PROFILE_CLASSES if any(k in name for k in keys)),

@@ -79,6 +79,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from ..ops.dense_block import dense_block, fold_block_params
 from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
@@ -427,6 +428,11 @@ class Encoder(nn.Module):
                                 Transition(num_features, num_features // 2))
                 num_features //= 2
         self.num_features = num_features
+        # the image encoder's stages are spans under model/forward; the
+        # mid-fusion LiDAR stream is one span, model/stream_2
+        self._block_spans = tuple(f"model/encoder.block{i + 1}" for i in range(self.num_blocks))
+        self._transition_spans = tuple(f"model/encoder.transition{i + 1}"
+                                       for i in range(self.num_blocks))
 
     def forward(self, x, after_transition=None):
         """``after_transition(i, x)``, if given, runs on the output of
@@ -435,22 +441,27 @@ class Encoder(nn.Module):
         operands kept per fold (:meth:`_stem_operands`); the pre-pool stem
         size still goes onto ``shapes`` for the decoder."""
         b, c, h, w = x.shape
-        if _stem_pool_ok(self.spec, b, h, w, c, self.training):
-            shapes = [(h // 2, w // 2)]
-            x = stem_pool(x.permute(0, 2, 3, 1).contiguous(), *self._stem_operands(x.dtype))
-            x = x.permute(0, 3, 1, 2)
-        else:
-            x = _bn_relu(_conv(x, self.conv0), self.norm0)
-            shapes = [tuple(x.shape[-2:])]
-            x = F.max_pool2d(x, 3, 2, 1)
+        span = tracing.span if self.full_depth else tracing.no_span
+        with span("model/encoder.stem"):
+            if _stem_pool_ok(self.spec, b, h, w, c, self.training):
+                shapes = [(h // 2, w // 2)]
+                x = stem_pool(x.permute(0, 2, 3, 1).contiguous(),
+                              *self._stem_operands(x.dtype))
+                x = x.permute(0, 3, 1, 2)
+            else:
+                x = _bn_relu(_conv(x, self.conv0), self.norm0)
+                shapes = [tuple(x.shape[-2:])]
+                x = F.max_pool2d(x, 3, 2, 1)
         skips = []
         for i in range(self.num_blocks):
-            x = getattr(self, f"denseblock{i + 1}")(x)
+            with span(self._block_spans[i]):
+                x = getattr(self, f"denseblock{i + 1}")(x)
             if i != self.last_block:
                 if self.full_depth:
                     skips.append(x)
                     shapes.append(tuple(x.shape[-2:]))
-                x = getattr(self, f"transition{i + 1}")(x)
+                with span(self._transition_spans[i]):
+                    x = getattr(self, f"transition{i + 1}")(x)
                 if after_transition is not None:
                     x = after_transition(i + 1, x)
         return x, skips, shapes
@@ -731,7 +742,10 @@ class DenseUNetLidar(nn.Module):
     stream_2_in_channels)`` (unused for 'no' fusion) — and returns ``(B, H,
     W, num_classes)`` logits in ``spec.dtype``. H and W must reduce cleanly
     through 5 stride-2 stages (e.g. multiples of 32). Weights are initialised
-    from ``generator`` (seed 0 if none is given).
+    from ``generator`` (seed 0 if none is given). The forward's stages are
+    spans (``model/stream_2``, ``model/encoder.*``, ``model/fuse``,
+    ``model/decoder``, ``model/head``; :mod:`..tracing`), recorded only
+    while the recorder is on or a profiler runs.
     """
 
     def __init__(self, spec: ModelSpec, *, generator: torch.Generator | None = None):
@@ -770,7 +784,8 @@ class DenseUNetLidar(nn.Module):
             enc_in = raw if fusion == "early" else s1
 
         if fusion == "mid":
-            s2_features, _, _ = self.stream_2_features(s2)
+            with tracing.span("model/stream_2"):
+                s2_features, _, _ = self.stream_2_features(s2)
             fuse_at = spec.concat_before_block_num - 1
 
             def fuse(i, x):
@@ -779,14 +794,17 @@ class DenseUNetLidar(nn.Module):
                 if x.shape != s2_features.shape:
                     raise ValueError(f"streams disagree at the fusion point: "
                                      f"{tuple(x.shape)} vs {tuple(s2_features.shape)}")
-                return self.concat_module(x, s2_features)
+                with tracing.span("model/fuse"):
+                    return self.concat_module(x, s2_features)
 
             x, skips, shapes = self.features(enc_in, after_transition=fuse)
         else:
             x, skips, shapes = self.features(enc_in)
 
-        x = self.decoder(x, skips, shapes)
-        return self.dec_out_to_heat_maps(x, raw).permute(0, 2, 3, 1)
+        with tracing.span("model/decoder"):
+            x = self.decoder(x, skips, shapes)
+        with tracing.span("model/head"):
+            return self.dec_out_to_heat_maps(x, raw).permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------

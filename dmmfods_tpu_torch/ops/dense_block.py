@@ -35,9 +35,10 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..tracing import LaunchCount
 from .dense_block_strip import (dense_block_strip_reference, layout, run_block_kernel,
                                 within_limits)
-from .fused import LaunchCount, fold_bn
+from .fused import fold_bn
 
 K4_LAUNCHES = LaunchCount()
 

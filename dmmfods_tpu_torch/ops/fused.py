@@ -25,29 +25,11 @@ Both take and return NHWC tensors, like the JAX function.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from ..tracing import LaunchCount
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-class LaunchCount:
-    """How many times a kernel was launched: a plain integer, behind a lock
-    because the serving worker thread and its caller may both launch."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.value = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.value += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.value = 0
-
 
 K1_LAUNCHES = LaunchCount()
 

@@ -43,7 +43,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .fused import _DTYPE_CODES, LaunchCount
+from ..tracing import LaunchCount
+from .fused import _DTYPE_CODES
 
 K3_LAUNCHES = LaunchCount()
 

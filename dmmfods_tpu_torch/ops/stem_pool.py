@@ -32,7 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused import _DTYPE_CODES, LaunchCount
+from ..tracing import LaunchCount
+from .fused import _DTYPE_CODES
 
 K6_LAUNCHES = LaunchCount()
 

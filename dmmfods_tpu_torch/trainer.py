@@ -13,10 +13,11 @@ here the module holds the first two and the optimizer the third, and
 state it was given. Inputs are NHWC tensors on the module's device: RGB,
 LiDAR (ignored when ``model.stream_2_in_channels`` is 0) and f32 heat maps.
 
-Each phase of a train step runs under a ``torch.profiler.record_function``
-range (``train_step/forward``, ``/loss``, ``/backward``, ``/metrics``; the
-optimizer's own is ``Optimizer.step#Adam.step``), so that a profile can
-attribute device time to it.
+Each phase of a train step runs under a span (``train_step/forward``,
+``/loss``, ``/backward``, ``/metrics``; :mod:`.tracing`), which a
+``torch.profiler`` on the calling thread sees as a ``record_function`` range
+of the same name (the optimizer's own is ``Optimizer.step#Adam.step``), so
+that a profile can attribute device time to it.
 
 The raw-record steps take label boxes, and LiDAR points or a LiDAR image
 splatted on the host, in place of dense maps, and preprocess on the device
@@ -34,9 +35,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
-from . import losses, metrics
+from . import losses, metrics, tracing
 from .ops import preprocess as pp
 from .optim import Adam
 
@@ -113,15 +113,15 @@ def make_train_step(module, optimizer, config, *, loss_fn: Optional[Callable] = 
     def step(state, rgb, lidar, ht_map):
         _check_state(state, module, optimizer)
         module.train()
-        with record_function("train_step/forward"):
+        with tracing.span("train_step/forward"):
             logits = module(rgb, None if single_stream else lidar).float()
-        with record_function("train_step/loss"):
+        with tracing.span("train_step/loss"):
             loss, elementwise = _loss(logits, ht_map, elementwise_fn, loss_fn)
         optimizer.zero_grad(set_to_none=True)
-        with record_function("train_step/backward"):
+        with tracing.span("train_step/backward"):
             loss.backward()
         optimizer.step()
-        with torch.no_grad(), record_function("train_step/metrics"):
+        with torch.no_grad(), tracing.span("train_step/metrics"):
             step_metrics = _step_metrics(logits.detach(), ht_map, elementwise.detach(),
                                          iou_threshold)
         step_metrics["loss"] = loss.detach()
@@ -174,7 +174,7 @@ def _points_step(base_step, full_height, full_width, splat_mode):
     rasterize = _make_heatmap_rasterizer(full_height, full_width)
 
     def step(state, image, points, num_valid, boxes):
-        with record_function("train_step/preprocess"):
+        with tracing.span("train_step/preprocess"):
             lidar = pp.lidar_points_to_model_input(points, num_valid, full_height, full_width,
                                                    mode=splat_mode)
             ht_map = rasterize(image, boxes)
@@ -189,7 +189,7 @@ def _boxes_step(base_step, full_height, full_width):
     rasterize = _make_heatmap_rasterizer(full_height, full_width)
 
     def step(state, image, lidar, boxes):
-        with record_function("train_step/preprocess"):
+        with tracing.span("train_step/preprocess"):
             ht_map = rasterize(image, boxes)
         return base_step(state, image, lidar, ht_map)
 
