@@ -276,27 +276,36 @@ def test_stats_count_requests_frames_padding_and_batches_per_bucket(bundle, call
     assert engine.device_batches == 3
     rng = np.random.default_rng(2)
     requests = [_frames(rng, n) for n in sizes]
+    # host blocks, in bytes a row of one channel: warm-up stages every bucket
+    # through the input blocks (3 + 1 channels), sized for bucket 8; a
+    # copy-out goes through one staging block of the largest bucket it met
+    # (3 channels); a result block on loan is sized for its bucket
+    row = H * W * 4
     if kind == "run":
         for rgb, lidar in requests:
             engine.run(rgb, lidar)
-        # 3 -> bucket 4 (1 padded); 11 -> 8, and 3 in bucket 4 (1 padded)
-        want = {1: (1, 0, 0), 4: (3, 6, 2), 8: (2, 8, 0)}
+        # 3 -> bucket 4 (1 padded), lent; 11 -> 8, and 3 in bucket 4 (1
+        # padded), both copied out (a call past the largest bucket)
+        want = {1: (1, 0, 0, 0, 0, 0), 4: (3, 6, 2, 1, 1, 4 * 3 * row),
+                8: (2, 8, 0, 0, 1, 8 * (4 + 3) * row)}
     else:
         # queued before the worker starts: one group of 13 frames, device
-        # batches of 8 and of 5 in bucket 8 (3 padded)
+        # batches of 8 and of 5 in bucket 8 (3 padded), copied out
         futures = [engine.submit(rgb, lidar) for rgb, lidar in requests]
         engine.start()
         for f in futures:
             f.result(timeout=120)
         engine.stop()
-        want = {1: (1, 0, 0), 4: (1, 0, 0), 8: (3, 13, 3)}
+        want = {1: (1, 0, 0, 0, 0, 0), 4: (1, 0, 0, 0, 0, 0),
+                8: (3, 13, 3, 0, 2, 8 * (4 + 3) * row)}
     stats = engine.stats()
-    assert stats["buckets"] == {b: dict(device_batches=n, frames=f, padded_frames=p)
-                                for b, (n, f, p) in want.items()}
+    keys = ("device_batches", "frames", "padded_frames", "results_lent", "results_copied",
+            "pinned_bytes")
+    assert stats["buckets"] == {b: dict(zip(keys, v)) for b, v in want.items()}
     assert stats["requests"] == len(sizes) and stats["frames"] == sum(sizes)
-    assert stats["padded_frames"] == sum(p for _, _, p in want.values())
-    assert stats["device_batches"] == engine.device_batches == sum(
-        n for n, _, _ in want.values())
+    for i, k in enumerate(keys):
+        assert stats[k] == sum(v[i] for v in want.values()), k
+    assert stats["device_batches"] == engine.device_batches
 
 
 def test_train_step_phases_show_under_the_profiler_with_the_recorder_off(tmp_path):
