@@ -5,9 +5,9 @@
 For each seed: the cell's set-up and a short window at the cell's own load,
 then the numbers of the correctness check for the program (``program``),
 and on the first ``--control`` seeds the same numbers for the control, the
-plain reference computed with fp8 convs (``gpubench/reference.py``) put in
-the program's place on the same requests (``control``). One JSON line a
-seed. The limit of each number lies between the largest program reading
+model family's plain reference in its lower precision (fp8 convs for the
+Dense U-Net) put in the program's place on the same requests (``control``).
+One JSON line a seed. The limit of each number lies between the largest program reading
 over a dozen seeds or more and the smallest control reading (``PERF.md``
 gives both).
 """

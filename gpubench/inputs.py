@@ -1,18 +1,15 @@
-"""Everything a run feeds both sides, made from ``--seed``: the weights as
-one ``state_dict``, the frames, and the requests. Weights and frames are
-made on the run's device by a ``torch.Generator`` there, in a few large
-calls; the requests on the host by numpy. The same seed gives the same
-inputs on the same kind of device.
+"""Everything a run feeds both sides, made from ``--seed``: the frames and
+the requests here, and the streams of the seed that the model family's
+``make_state_dict`` draws the weights from. Frames (and weights) are made
+on the run's device by a ``torch.Generator`` there, in a few large calls;
+the requests on the host by numpy. The same seed gives the same inputs on
+the same kind of device.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
-
-from .reference import ReferenceNet, kaiming_std
 
 # sub-streams of one seed
 WEIGHTS, FRAMES, REQUESTS, SAMPLE = 0, 1, 3, 4
@@ -27,41 +24,6 @@ def sub_seed(seed: int, stream: int) -> int:
 
 def generator(seed: int, stream: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(sub_seed(seed, stream))
-
-
-def make_state_dict(arch, seed, device):
-    """Seeded weights under the network's module names, on ``device``, f32:
-    every conv kaiming-normal over its fan-in, and every BN with a weight in
-    [0.75, 1.25], a bias and a running mean in [-0.1, 0.1], a running
-    variance in [0.75, 1.25] (so that folding them is work the comparison
-    sees). Two random calls: one normal draw for all conv weights, one
-    uniform draw for all BN entries."""
-    shapes = {k: (tuple(v.shape), v.dtype) for k, v in
-              ReferenceNet(arch).to("meta").state_dict().items()}
-    conv_keys = [k for k, (s, _) in shapes.items() if len(s) == 4]
-    bn_names = sorted({k.rsplit(".", 1)[0] for k, (s, _) in shapes.items()
-                       if k.endswith("running_var")})
-    gen = generator(seed, WEIGHTS, device)
-    sizes = [math.prod(shapes[k][0]) for k in conv_keys]
-    stds = torch.tensor([kaiming_std(shapes[k][0], ".Transposed_Convolution_" in k)
-                         for k in conv_keys], device=device)
-    flat = torch.randn(sum(sizes), generator=gen, device=device)
-    flat *= torch.repeat_interleave(stds, torch.tensor(sizes, device=device))
-    out = {k: t.view(shapes[k][0]) for k, t in zip(conv_keys, flat.split(sizes))}
-    widths = [shapes[f"{n}.weight"][0][0] for n in bn_names]
-    u = torch.rand(4, sum(widths), generator=gen, device=device)
-    u[0].mul_(0.5).add_(0.75)      # weight
-    u[1].sub_(0.5).mul_(0.2)       # bias
-    u[2].sub_(0.5).mul_(0.2)       # running mean
-    u[3].mul_(0.5).add_(0.75)      # running var
-    for n, parts in zip(bn_names, u.split(widths, dim=1)):
-        for j, field in enumerate(("weight", "bias", "running_mean", "running_var")):
-            out[f"{n}.{field}"] = parts[j]
-        out[f"{n}.num_batches_tracked"] = torch.zeros((), dtype=torch.long, device=device)
-    missing = set(shapes) - set(out)
-    if missing:
-        raise RuntimeError(f"weights left unmade: {sorted(missing)[:5]}")
-    return out
 
 
 def make_frames(seed, n, h, w, device, stream=FRAMES):

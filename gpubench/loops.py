@@ -6,17 +6,22 @@ hands the correctness check.
 * ``stream``: requests from a fixed number of clients, a closed loop:
   ``engine.submit`` with the engine's worker started, each client sending
   its next request (sizes and frames drawn from the seed) when its last
-  one's heat maps are back; the frames that came back by the window's close
+  one's answer is back; the frames that came back by the window's close
   are counted. The requests still out at the close (one a client at most)
   are waited for and judged like the others.
 
 Each loop builds the program once in :meth:`Loop.setup` (the model, the
 seeded weights, the warm-up of the cell's shapes), runs one window in
 :meth:`Loop.window`, and after :meth:`Loop.release` has freed the program's
-state gives the check its readings: the program's outputs beside the plain
+state gives the check its readings: the program's answers beside the plain
 reference's (:meth:`Loop.readings`), or the control's beside the reference
-(:meth:`Loop.control_readings`). With tracing on, ``torch.profiler`` records
-the last ``TRACE_SECONDS`` of the window.
+(:meth:`Loop.control_readings`). What a model is, what its answers hold and
+how they are judged is the cell's model family's (``cell.family``, see
+``gpubench/spec.py``): no code here names one. With tracing on,
+``torch.profiler`` records the last ``TRACE_SECONDS`` of the window; a
+stream cell's profiler stops only once the requests out at the close are
+back and the engine's worker has stopped, since stopping it while another
+thread drives the device can crash the process.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import gc
-import importlib
 import math
 import sys
 import time
@@ -34,24 +38,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import check, inputs
+from . import inputs
 from . import trace as tr
-from .reference import ReferenceNet, forward_in_chunks, strict_fp32
 
 TRACE_SECONDS = 3.0
 CLOSE_WAIT_SECONDS = 60.0  # how long a request out at the close may take past it
-
-# the program's kernel launch counters: (name, module under ops, attribute)
-COUNTERS = (("K1", "fused", "K1_LAUNCHES"), ("K2", "dense_block_strip", "K2_LAUNCHES"),
-            ("K3", "phase_head", "K3_LAUNCHES"), ("K4", "dense_block", "K4_LAUNCHES"),
-            ("K5", "dense_block_strip", "K5_LAUNCHES"), ("K6", "stem_pool", "K6_LAUNCHES"))
-
-
-def counters():
-    """``{name: the program's launch counter}``; each has a ``value``."""
-    return {name: getattr(importlib.import_module(f"dmmfods_tpu_torch.ops.{mod}"), attr)
-            for name, mod, attr in COUNTERS}
-
 
 def sync(device):
     if device.type == "cuda":
@@ -71,7 +62,8 @@ class RunRecord:
     # host seconds of each engine.forward call of the window (with tracing
     # on, of those begun before the traced slice)
     forward_host_s: list = dataclasses.field(default_factory=list)
-    # each engine.forward call's kernel launches, {"K1": n, ...}, in order
+    # each engine.forward call's kernel launches, {"K1": n, ...} (the
+    # family's counters), in order
     forward_launches: list = dataclasses.field(default_factory=list)
     device_batches: int = 0
     forwards_traced: int = 0      # engine.forward calls begun in the traced slice
@@ -84,8 +76,9 @@ class RunRecord:
 
 class Tracer:
     """``torch.profiler`` over a slice of the window, bracketed by the
-    ``gpubench/window`` range; :meth:`stop` gives the reduced trace and the
-    offset from ``time.perf_counter`` to the profiler's clock."""
+    ``gpubench/window`` range, which :meth:`close` ends; :meth:`stop` exits
+    the profiler and gives the reduced trace and the offset from
+    ``time.perf_counter`` to the profiler's clock."""
 
     def __init__(self, device):
         self.device = device
@@ -113,9 +106,19 @@ class Tracer:
         self.span.__enter__()
         self.on = True
 
-    def stop(self):
+    def close(self):
+        """End the traced slice: wait for the device, then close the
+        ``gpubench/window`` range. The profiler records on until
+        :meth:`stop`; the readers read the slice alone."""
         sync(self.device)
         self.span.__exit__(None, None, None)
+        self.span = None
+
+    def stop(self):
+        """Exit the profiler (closing the slice first if :meth:`close` has
+        not)."""
+        if self.span is not None:
+            self.close()
         self.prof.__exit__(None, None, None)
         self.on = False
         trace = tr.reduce_events(self.prof.events())
@@ -128,7 +131,7 @@ class Loop:
 
     def __init__(self, cell, seed, device):
         self.cell, self.seed, self.device = cell, int(seed), torch.device(device)
-        self.traffic, self.arch = cell.traffic, cell.arch
+        self.traffic, self.arch, self.family = cell.traffic, cell.arch, cell.family
         self.parts = {}           # set-up seconds by part
         self.t_window = None      # perf_counter at the window's start
 
@@ -140,33 +143,22 @@ class Loop:
         return out
 
     def build(self):
-        """The program's model, as its constructor builds it, with the
-        seeded weights loaded."""
-        from dmmfods_tpu_torch.config import get_config
-        from dmmfods_tpu_torch.models.dense_unet_lidar import (DenseUNetLidar, ModelBundle,
-                                                               ModelSpec)
-
-        def model():
-            config = get_config()
-            for section in ("model", "gpu", "optimizer"):
-                for k, v in self.cell.config[section].items():
-                    config[section][k] = v
-            spec = ModelSpec.from_config(config)
-            module = DenseUNetLidar(spec).to(device=self.device,
-                                             memory_format=torch.channels_last).eval()
-            return ModelBundle(module=module, config=config, spec=spec)
-
-        self.bundle = self._part("model", model)
-        self.state_dict = self._part("weights", lambda: inputs.make_state_dict(
+        """The program's model, as the family builds it, with the seeded
+        weights loaded."""
+        self.bundle = self._part("model", lambda: self.family.build(self.cell.config,
+                                                                    self.device))
+        self.state_dict = self._part("weights", lambda: self.family.make_state_dict(
             self.arch, self.seed, self.device))
         self._part("weights", lambda: self.bundle.module.load_state_dict(self.state_dict))
 
     def reference(self, quant=None):
+        """The family's plain reference on the run's device, with the seeded
+        weights."""
         with torch.device("meta"):
-            net = ReferenceNet(self.arch)
+            net = self.family.reference(self.arch, quant)
         net = net.to_empty(device=self.device)
         net.load_state_dict(self.state_dict)
-        return net.set_quant(quant)
+        return net
 
     def release(self):
         """Free the program's state before the reference runs."""
@@ -196,7 +188,7 @@ class ServingLoop(Loop):
             self.parts["build"] = _build.build_seconds
             self.parts["warmup"] -= _build.build_seconds
         self.forward_calls = []
-        orig, launches = self.engine.forward, counters()
+        orig, launches = self.engine.forward, self.family.counters()
 
         def forward(rgb, lidar):
             # one thread calls it at a time (the caller, or the engine's
@@ -221,16 +213,15 @@ class ServingLoop(Loop):
                close=math.inf):
         """The window's record; ``engine.forward`` calls begun from its
         start until ``close`` are its calls."""
-        from .flops import frame_flops
-
         calls = [c for c in self.forward_calls if self.t_window <= c[0] < close]
         rec = RunRecord(cell=self.cell, loop=self.kind, window_s=window_s, attempted=attempted,
                         failed=failed, frames=frames,
                         forward_host_s=[e - s for s, e, _ in calls],
                         forward_launches=[n for _, _, n in calls],
                         device_batches=self.engine.device_batches - batches0,
-                        flops_per_frame=frame_flops(self.arch, self.traffic["height"],
-                                                    self.traffic["width"]))
+                        flops_per_frame=self.family.flops_per_frame(
+                            self.arch, self.traffic["height"], self.traffic["width"]))
+        rec.notes.append(f"{rec.flops_per_frame} operations a frame, forward, from shapes")
         if tracer_out is not None:
             rec.trace, offset = tracer_out
             lo, hi = (t - offset for t in rec.trace.window)
@@ -246,44 +237,44 @@ class ServingLoop(Loop):
         return rec
 
     def readings(self):
-        """``{request: (program heat maps, reference heat maps)}`` for every
-        kept answer, the reference in float32, TF32 off."""
-        ref = self.reference_maps(None)
+        """``{request: (program answer, reference answer)}`` for every kept
+        answer, the reference in float32."""
+        ref = self.reference_answers(None)
         return {k: (v, ref[k]) for k, v in self.kept.items()}
 
     def control_readings(self):
-        """The control in the program's place: the reference with fp8 convs
-        on the same requests, beside the float32 reference."""
-        ref, ctl = self.reference_maps(None), self.reference_maps("fp8")
+        """The control in the program's place: the family's reference in its
+        lower precision on the same requests, beside the float32 reference."""
+        ref, ctl = self.reference_answers(None), self.reference_answers("fp8")
         return {k: (ctl[k], ref[k]) for k in self.kept}
 
     def reference_units(self):
         """The distinct inputs the kept answers hold: ``{unit: (rgb, lidar)}``."""
         return {k: self.inputs_of(k) for k in self.kept}
 
-    def assemble(self, unit_maps):
-        """Each kept answer's reference heat maps from the units'."""
-        return unit_maps
+    def assemble(self, answers, rows):
+        """Each kept answer's reference from ``answers``, the reference's
+        answer over every unit's frames, of which unit ``k`` holds rows
+        ``rows[k]``."""
+        return {k: self.family.take(answers, r) for k, r in rows.items()}
 
-    def reference_maps(self, quant):
+    def reference_answers(self, quant):
         net = self.reference(quant).eval()
         units = self.reference_units()
         keys = sorted(units)
         rgb = np.concatenate([units[k][0] for k in keys])
         lidar = np.concatenate([units[k][1] for k in keys])
-        with strict_fp32():
-            logits = forward_in_chunks(net, rgb, lidar, self.traffic["reference_chunk"])
+        answers = self.family.reference_answers(net, rgb, lidar, self.traffic["reference_chunk"])
         del net
-        maps = torch.sigmoid(logits).numpy()
-        out, start = {}, 0
+        rows, start = {}, 0
         for k in keys:
             n = units[k][0].shape[0]
-            out[k] = maps[start:start + n]
+            rows[k] = range(start, start + n)
             start += n
-        return self.assemble(out)
+        return self.assemble(answers, rows)
 
     def numbers(self, pairs):
-        return check.serving_numbers(pairs)
+        return self.family.numbers(pairs)
 
 
 class ScoreLoop(ServingLoop):
@@ -317,9 +308,10 @@ class ScoreLoop(ServingLoop):
                 failed += 1
                 print(f"call {calls} failed: {exc!r}", file=sys.stderr, flush=True)
             else:
-                frames += out.shape[0]
-                idx = tuple(inputs.pick(self.seed + calls, out.shape[0], keep_each))
-                kept[(p, idx, calls)] = out[list(idx)].copy()
+                n = self.family.frames(out)
+                frames += n
+                idx = tuple(inputs.pick(self.seed + calls, n, keep_each))
+                kept[(p, idx, calls)] = self.family.take(out, idx)
             calls += 1
         window_s = time.perf_counter() - t0
         tracer_out = tracer.stop() if tracer else None
@@ -332,8 +324,8 @@ class ScoreLoop(ServingLoop):
         return {(p, f): (self.pool[p][0][f:f + 1], self.pool[p][1][f:f + 1])
                 for p, f in frames}
 
-    def assemble(self, unit_maps):
-        return {(p, idx, c): np.concatenate([unit_maps[(p, f)] for f in idx])
+    def assemble(self, answers, rows):
+        return {(p, idx, c): self.family.take(answers, [rows[(p, f)][0] for f in idx])
                 for p, idx, c in self.kept}
 
 
@@ -360,8 +352,10 @@ class StreamLoop(ServingLoop):
 
     def window(self, seconds, trace):
         """``clients`` callers, each submitting its next request when its
-        last one's heat maps are back, until the close; the requests still
-        out at the close are waited for (at most ``CLOSE_WAIT_SECONDS``)."""
+        last one's answer is back, until the close; the requests still out
+        at the close are waited for (at most ``CLOSE_WAIT_SECONDS``). With
+        tracing on, the traced slice ends at the close, and the profiler
+        stops after that wait and the worker's stop."""
         t, engine = self.traffic, self.engine
         tracer = Tracer(self.device) if trace else None
         requests = inputs.Requests(self.seed, t["frames_per_request"], t["pool_frames"],
@@ -397,13 +391,15 @@ class StreamLoop(ServingLoop):
                 return_when=concurrent.futures.FIRST_COMPLETED)
             collect(finished)
             pending |= {submit() for _ in finished}
-        tracer_out = tracer.stop() if tracer else None
+        if tracer:
+            tracer.close()
         out_at_close = len(pending)
         finished, pending = concurrent.futures.wait(pending, timeout=CLOSE_WAIT_SECONDS)
         collect(finished)
         window_s = time.perf_counter() - t0
         if not pending:
             engine.stop()
+        tracer_out = tracer.stop() if tracer else None
         ok = [f.done() and f.exception() is None and not math.isnan(done_at[i])
               for f, i in futures.items()]
         sizes = [k for _, k in self.spans]

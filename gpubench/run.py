@@ -7,9 +7,9 @@ configuration under a traffic mix, read from the files named in
 ``gpubench/spec.py``. The run builds the program (``dmmfods_tpu_torch``) on
 the card, makes its weights and inputs from the seed, warms up the cell's
 shapes, measures for ``--seconds`` seconds, then frees the program and holds
-what the window produced against the plain reference
-(``gpubench/reference.py``). The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
+what the window produced against the plain reference of the configuration's
+model family (``gpubench/families/``). The last line of standard output is
+one JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer metrics), ``device``,
 with ``--trace 1`` ``breakdown``, and last ``checks``: each compared number
 beside its limit, which standard error also ends with.

@@ -1,21 +1,21 @@
 """The operation counts and bounds: against hand counts of one dense block
-and of the head, and against ``FlopCounterMode`` over the plain reference
-(forward, and forward + backward) at a small size."""
+and of the head, against ``FlopCounterMode`` over the plain reference of
+each Dense U-Net configuration (forward, and forward + backward) at a small
+size, and the counts the cells use, through their model family."""
 
 from __future__ import annotations
-
-import json
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from conftest import ROOT, TINY_ARCH
+from _bench import configs, family, tiny_config
 from gpubench import flops
 from gpubench.reference import ReferenceNet, bce_sum
 
-D121 = json.loads((ROOT / "gpubench/configs/densenet121-mid2.json").read_text())["model"]
-D161 = json.loads((ROOT / "gpubench/configs/densenet161-mid3.json").read_text())["model"]
+CONFIGS = configs()
+D121, D161 = CONFIGS["densenet121-mid2"]["model"], CONFIGS["densenet161-mid3"]["model"]
+UNET = sorted(n for n, c in CONFIGS.items() if c["family"] == "dense_unet_lidar")
 
 
 def test_dense_block_by_hand():
@@ -41,9 +41,10 @@ def test_head_by_hand():
     assert flops._op_flops(refine1) == 2 * 128 * 192 * 25 * 64 * 3
 
 
+@pytest.mark.parametrize("config", UNET)
 @pytest.mark.parametrize("train", [False, True])
-def test_counts_equal_flop_counter_over_the_reference(train):
-    arch = dict(D121, **TINY_ARCH)
+def test_counts_equal_flop_counter_over_the_reference(config, train):
+    arch = tiny_config(CONFIGS[config])["model"]
     net = ReferenceNet(arch).train(train)
     rgb, lidar = torch.rand(2, 64, 96, 3), torch.rand(2, 64, 96, 1)
     with FlopCounterMode(display=False) as counter:
@@ -55,10 +56,13 @@ def test_counts_equal_flop_counter_over_the_reference(train):
 
 
 def test_full_size_counts():
-    """The counts the cells' mfu metrics use (PERF.md gives them)."""
-    assert flops.frame_flops(D121, 128, 192) == 8_384_937_984
-    assert flops.frame_flops(D121, 128, 192, train=True) == 25_000_673_280
-    assert flops.frame_flops(D161, 1280, 1920) == 2_288_487_628_800
+    """The counts the cells' mfu metrics use (PERF.md gives them), as the
+    family gives them to the run."""
+    unet = family(CONFIGS["densenet121-mid2"])
+    assert unet.flops_per_frame(D121, 128, 192) == flops.frame_flops(D121, 128, 192)
+    assert unet.flops_per_frame(D121, 128, 192) == 8_384_937_984
+    assert unet.flops_per_frame(D121, 128, 192, train=True) == 25_000_673_280
+    assert unet.flops_per_frame(D161, 1280, 1920) == 2_288_487_628_800
 
 
 def test_kernel_bounds_are_operation_bound_at_densenet161s_full_resolution():

@@ -1,6 +1,7 @@
-"""Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the program either: checked in fresh
-interpreters, by whole top-level module names."""
+"""Nothing the benchmark runs loads JAX or the JAX package, in any cell of
+``BENCHMARK.json``, and the plain reference of every configuration's model
+family (with its weights, answers and counts) loads nothing of the program
+either: checked in fresh interpreters, by whole top-level module names."""
 
 from __future__ import annotations
 
@@ -8,19 +9,19 @@ import json
 import subprocess
 import sys
 
-from conftest import ROOT
+from _bench import ROOT
 
 SETUP_ON_CPU = """
 import json, sys, tempfile, time
 from pathlib import Path
 sys.path[:0] = [{root!r}, {tests!r}]
-from conftest import copy_benchmark, shrink
+from _bench import CELLS, copy_benchmark, shrink
 root = copy_benchmark(Path(tempfile.mkdtemp()))
 shrink(root)
 import gpubench.run, gpubench.calibrate
 from gpubench import spec
 from gpubench.loops import LOOPS
-for name in ("d121-score-b256", "d161-cam-1280x1920"):
+for name in CELLS:
     cell = spec.load_cell(root, name)
     loop = LOOPS[cell.traffic["loop"]](cell, 1, "cpu")
     loop.setup(0.5)
@@ -30,8 +31,16 @@ print(json.dumps(sorted({{m.split(".", 1)[0] for m in sys.modules}})))
 
 REFERENCE_ONLY = """
 import json, sys
-sys.path.insert(0, {root!r})
-import gpubench.reference, gpubench.flops, gpubench.trace, gpubench.check
+sys.path[:0] = [{root!r}, {tests!r}]
+import gpubench.reference, gpubench.flops, gpubench.trace, gpubench.check, gpubench.inputs
+from _bench import configs, family, tiny_config
+for config in configs().values():
+    fam, arch = family(config), tiny_config(config)["model"]
+    net = fam.reference(arch).eval()
+    net.load_state_dict(fam.make_state_dict(arch, 1, "cpu"))
+    rgb, lidar = gpubench.inputs.make_frames(1, 1, 64, 96, "cpu")
+    fam.reference_answers(net, rgb.numpy(), lidar.numpy(), 1)
+    fam.param_count(arch), fam.flops_per_frame(arch, 64, 96)
 print(json.dumps(sorted({{m.split(".", 1)[0] for m in sys.modules}})))
 """
 

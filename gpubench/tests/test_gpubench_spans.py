@@ -14,7 +14,7 @@ import types
 
 import pytest
 
-from conftest import ROOT, run as run_cell
+from _bench import ROOT, run as run_cell
 from gpubench import program_spans as ps
 from gpubench import spec
 from gpubench import trace as tr

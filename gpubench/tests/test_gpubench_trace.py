@@ -8,7 +8,7 @@ import json
 
 import pytest
 
-from conftest import ROOT
+from _bench import ROOT
 from gpubench import flops, spec
 from gpubench import trace as tr
 from gpubench.loops import RunRecord
