@@ -59,6 +59,23 @@ exit code:
    channels, and at two ragged shapes (4 and 8 channels) in bf16, on
    weights packed beforehand (``pack_stem_weights``), and at a ragged shape
    in f32.
+4b. The eval BN-ReLU pass (``ops/bn_relu.py``, which replaces no TPU
+   kernel): one bf16 eval forward of DenseNet-121 at 128x192 b256 and of
+   DenseNet-161 at 1280x1920 b1 (mid fusion before blocks 2 and 3) launches
+   it once at each plain-path site (142 and 135) and folds each module's
+   operands once (``BN_FOLDS`` 15 and 13, then 0), a train-mode forward
+   launches none; the kernel against the exact value rounded once (bf16,
+   one ulp) and its plain version (f32, 1e-6) at every site shape the
+   forwards met and at six more (channel counts not multiples of 8, a 1x1
+   plane); NCHW-contiguous, float16 and an unaligned start refused. Timed
+   there: the forward's sites in sequence (device time alone) as the
+   kernel, its plain version and the per-call passes it replaces, against
+   their bound; their host enqueue; the fold cache's checks in a forward;
+   the forward with the kernel in turns with the per-call fold. From phase 5
+   on, each served device batch and each eval step also launches the pass
+   once at each site ``_bn_relu_sites`` derives from the architecture (less
+   the blocks a kernel takes and the stems K6 takes), and a train step none;
+   the kernel JSON line's ``bn_relu`` launches add up those runs.
 5. Serve at 128x192 with the default config: the full-width DenseNet-121
    mid-fusion model (random weights from a seed) in bf16 through
    ``InferenceEngine``: warm-up, the worker with four requests, one
@@ -163,7 +180,8 @@ exit code:
    rasterizer and the device splat alone (by events and as device time
    alone); the host splat, native at two threads and its numpy form once.
 
-Its last two lines are a JSON summary of the kernels and the run's result.
+Its last two lines are a JSON summary of the kernels (the six TPU kernels'
+counterparts and the BN-ReLU pass) and the run's result.
 """
 
 from __future__ import annotations
@@ -232,6 +250,14 @@ OPT_IN_LAUNCHES = {1: dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=2),
                    32: dict(K1=1, K2=0, K3=0, K4=5, K5=0, K6=0)}
 # with gpu.use_fused_kernels = False: the plain concat and head, no kernel
 NO_FUSED_LAUNCHES = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=0)
+# the (stream, block) pairs, 1-based, that a kernel takes whole on a served
+# path, which the eval BN-ReLU pass then skips (_bn_relu_sites): K2 or K5 at
+# 1280x1920 with mid fusion before block 3, K4 at 128x192 with the opt-ins
+# per bucket (OPT_IN_LAUNCHES) and on DenseNet-161's K4 path
+FULL_KERNEL_BLOCKS = ((1, 1), (1, 2), (2, 1), (2, 2))
+OPT_IN_KERNEL_BLOCKS = {1: ((1, 1), (1, 2), (2, 1)), 8: ((1, 1), (1, 2), (2, 1), (1, 3)),
+                        32: ((1, 1), (1, 2), (2, 1), (1, 3), (1, 4))}
+K4_KERNEL_BLOCKS_161 = ((1, 1), (1, 2), (2, 1))
 # K2's, K4's and K5's plain version, dense_block_strip_reference
 PLAIN_BLOCK = "cuDNN bf16 convs, BN in f32 over each concat prefix"
 # K2's and K3's extra bf16 shapes (name, h, w, c0, layers, growth, K; hh, hw,
@@ -255,7 +281,7 @@ K3_RAGGED_WIDE = [(13, 21, 200, 3, 90, 5), (9, 17, 240, 4, 96, 3), (13, 21, 192,
 # conv over the masked window grid) beside the plain head, at DenseNet-121's
 # 128x192 head (x_lo 64x96, c_up 128, raw 4, c_mid 64) at these batches
 PHASE_HEAD_BATCHES = (32, 256)
-KERNEL_NAMES = ("concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
+KERNEL_NAMES = ("bn_relu_kernel", "concat_bn_relu_conv1x1_kernel", "dense_layer_kernel",
                 "phase_head_kernel", "dense_block_kernel", "stem_pool_kernel",
                 "dense_block_recompute_kernel", "concat_bn_relu_conv1x1_mma_kernel",
                 "dense_layer_mma_kernel", "phase_head_mma_kernel", "dense_block_mma_kernel",
@@ -323,6 +349,20 @@ DENSENET161_PORT_KERNELS = dict(K2=4, K3=1)
 DENSENET161_LAUNCHES = {"default": dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=0),
                         "K5 path": dict(K1=1, K2=0, K3=1, K4=0, K5=4, K6=0),
                         "K4 path": dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=0)}
+# The eval BN-ReLU pass on the two benchmarked forwards (default config,
+# bf16): (constructor, mid fusion before block, batch, h, w, BN-ReLU sites of
+# the plain path, modules that fold). DenseNet-121 at 128x192: the stems,
+# blocks 1-4 and stream 2's block 1, the transitions and the decoder stages
+# (K1 takes the fuse, the phase-space head the head); DenseNet-161 at
+# 1280x1920: the same less blocks 1-2 of both streams (K2) and the head (K3).
+BN_RELU_FORWARDS = {
+    "densenet121 b256 128x192": ("densenet121_u_lidar", 2, 256, HEIGHT, WIDTH, 142, 15),
+    "densenet161 b1 1280x1920": ("densenet161_u_lidar", 3, 1, FULL_HEIGHT, FULL_WIDTH, 135, 13),
+}
+# and channel counts past the sites': not a multiple of 8 (a vector spans two
+# rows), fewer than 8, one channel, a 1x1 plane
+BN_RELU_EXTRA = [(2, 132, 16, 24), (3, 3, 5, 7), (1, 1, 3, 3), (2, 7, 9, 11), (1, 44, 1, 1),
+                 (5, 2212, 3, 3)]
 
 
 def _card_line() -> str:
@@ -390,10 +430,10 @@ def _in_turns(*fns, iters):
     return tuple(_median(t) for t in times)
 
 
-def _device_ms(fn, iters, warmup=3):
-    """Median ms of ``fn``'s device work alone: the stream sleeps (~1 ms)
-    before the start event while the host enqueues the call, so the event
-    window holds no host time."""
+def _device_ms(fn, iters, warmup=3, sleep=2_000_000):
+    """Median ms of ``fn``'s device work alone: the stream sleeps (``sleep``
+    cycles, ~1 ms by default) before the start event while the host enqueues
+    the call, so the event window holds no host time."""
     import torch
 
     for _ in range(warmup):
@@ -402,12 +442,28 @@ def _device_ms(fn, iters, warmup=3):
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(iters):
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return _median(times)
+
+
+def _host_ms(fn, iters, warmup=2):
+    """Median ms the host takes to enqueue ``fn``, from an idle device."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return _median(times)
 
 
@@ -572,13 +628,204 @@ def _k6_inputs(gen, batch, h, w, c, f, dtype, device):
     return x, w7.to(device), gamma.to(device), beta.to(device)
 
 
+def _bn_relu_phase(device):
+    """Phase 4b: the eval BN-ReLU pass (``ops/bn_relu.py``). One bf16 eval
+    forward of each of ``BN_RELU_FORWARDS`` launches it once per plain-path
+    site and folds once per module, a second forward folds nothing, and a
+    train-mode forward launches none; then the kernel against the exact value
+    rounded once (bf16: within one ulp) and against its plain version (f32:
+    1e-6) at every site shape the forward met and at ``BN_RELU_EXTRA``; a
+    layout and dtype it does not take raise. Timed, as device time alone:
+    the forward's sites in sequence as the kernel, as its plain version and
+    as the per-call passes it replaces (a broadcast mul and add in bf16, a
+    ReLU), against the bound of their bytes; the host's time to enqueue the
+    sites both ways; the fold cache's check; and the forward on kept
+    operands in turns with the per-call fold. Returns the kernel's JSON
+    entry."""
+    import torch
+
+    from dmmfods_tpu_torch.config import get_config
+    from dmmfods_tpu_torch.models import dense_unet_lidar as pm
+    from dmmfods_tpu_torch.ops import bn_relu as br
+
+    entry = {"name": "bn_relu", "route": "cuda", "source": "dmmfods_tpu_torch/csrc/bn_relu.cu",
+             "replaces": None, "library_ms": LIBRARY_MS}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = 0.0
+    kept, per_call = pm._eval_operands, (lambda module, x, parts: (None,) * len(parts))
+
+    def check(shape, dt):
+        nonlocal worst
+        c = shape[1]
+        x = torch.randn((shape[0], shape[2], shape[3], c), generator=gen, device=device)
+        x = (2 * x).to(dt).permute(0, 3, 1, 2)
+        scale = torch.rand(c, generator=gen, device=device) + 0.5
+        shift = torch.randn(c, generator=gen, device=device) * 0.3
+        out = br.bn_relu(x, scale, shift)
+        torch.cuda.synchronize()
+        exact = torch.relu(x.double() * scale.double()[:, None, None]
+                           + shift.double()[:, None, None])
+        if dt == torch.bfloat16:
+            want = exact.to(dt).double()
+            ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+            err = (out.double() - want).abs()
+            ok = bool((err <= ulp).all())
+        else:
+            err = (out.double() - br.bn_relu_reference(x, scale, shift).double()).abs()
+            ok = bool((err <= 1e-6 * exact.abs() + 1e-6).all())
+        worst = max(worst, err.max().item())
+        if not ok or out.stride() != x.stride():
+            raise AssertionError(f"BN-ReLU at {shape} {dt}: max err {err.max().item()}")
+
+    for label, (constructor, fuse, batch, h, w, sites, modules) in BN_RELU_FORWARDS.items():
+        cfg = get_config()
+        cfg.model.concat_before_block_num = fuse
+        module = getattr(pm, constructor)(config=cfg, device=device, seed=SEED).module
+        rgb = torch.rand(batch, h, w, 3, generator=gen, device=device)
+        lidar = torch.rand(batch, h, w, 1, generator=gen, device=device)
+        shapes = []
+
+        def spy(x, scale, shift):
+            shapes.append((tuple(x.shape), x.stride()))
+            return br.bn_relu(x, scale, shift)
+
+        pm.bn_relu = spy
+        counts = []
+        with torch.inference_mode():
+            for _ in range(3):
+                before = br.BN_RELU_LAUNCHES.value, br.BN_FOLDS.value
+                module(rgb, lidar)
+                torch.cuda.synchronize()
+                counts.append((br.BN_RELU_LAUNCHES.value - before[0],
+                               br.BN_FOLDS.value - before[1]))
+        pm.bn_relu = br.bn_relu
+        launches = br.BN_RELU_LAUNCHES.value
+        with torch.no_grad():
+            module.train()(rgb, lidar)
+        module.eval()
+        train_launches = br.BN_RELU_LAUNCHES.value - launches
+        shapes = shapes[:sites]
+        elements = sum(math.prod(shape) for shape, _ in shapes)
+        print(f"BN-ReLU {label}: BN_RELU_LAUNCHES per forward {[n for n, _ in counts]}, "
+              f"BN_FOLDS {[f for _, f in counts]} (want {sites} sites, {modules} folds once; "
+              f"hit share over 3 forwards {1 - sum(f for _, f in counts) / (3 * modules):.3f}), "
+              f"train mode {train_launches}; {elements:,} elements a forward")
+        if (counts != [(sites, modules), (sites, 0), (sites, 0)] or train_launches
+                or len(shapes) != sites):
+            raise AssertionError(f"BN-ReLU launches or folds off: {counts}, train "
+                                 f"{train_launches}")
+        for shape in sorted({shape for shape, _ in shapes}):
+            for dt in (torch.bfloat16, torch.float32):
+                check(shape, dt)
+        # the forward's sites as three passes, as the plain version, as the kernel
+        ops = []
+        for shape, stride in shapes:
+            x = torch.empty_strided(shape, stride, dtype=torch.bfloat16, device=device)
+            x.normal_(generator=gen)
+            ops.append((x, torch.rand(shape[1], device=device) + 0.5,
+                        torch.randn(shape[1], device=device) * 0.1))
+
+        def kernel():
+            for x, scale, shift in ops:
+                br.bn_relu(x, scale, shift)
+
+        def plain():
+            for x, scale, shift in ops:
+                br.bn_relu_reference(x, scale, shift)
+
+        def three_passes():
+            for x, scale, shift in ops:
+                torch.relu(x * scale.to(x.dtype)[:, None, None]
+                           + shift.to(x.dtype)[:, None, None])
+
+        bound_ms = elements * 2 * 2 / PEAK_BYTES_PER_S * 1e3
+        dev = {name: _device_ms(fn, 10) for name, fn in
+               (("kernel", kernel), ("plain", plain), ("three", three_passes))}
+        host = {name: _host_ms(fn, 10) for name, fn in
+                (("kernel", kernel), ("three", three_passes))}
+        print(f"BN-ReLU {label}: the {sites} sites' device time alone, kernel "
+              f"{dev['kernel']:.4f} ms ({bound_ms / dev['kernel']:.1%} of the bound), plain "
+              f"version {dev['plain']:.4f} ms, the per-call passes (mul, add, ReLU) "
+              f"{dev['three']:.4f} ms; bound {bound_ms:.4f} ms (bytes); host enqueue, kernel "
+              f"{host['kernel']:.4f} ms, per-call passes {host['three']:.4f} ms")
+        spent = []
+
+        def timed(module, x, parts):
+            t0 = time.perf_counter()
+            ops = kept(module, x, parts)
+            spent[-1] += time.perf_counter() - t0
+            return ops
+
+        pm._eval_operands = timed
+        with torch.inference_mode():
+            for _ in range(5):
+                spent.append(0.0)
+                module(rgb, lidar)
+        pm._eval_operands = kept
+        check_ms = _median(spent) * 1e3
+        fwd = {}
+        with torch.inference_mode():
+            for name, fn in (("kept", kept), ("per call", per_call), ("per call", per_call),
+                             ("kept", kept)):
+                pm._eval_operands = fn
+                fwd.setdefault(name, []).append(
+                    (_device_ms(lambda: module(rgb, lidar), 5, sleep=200_000_000),
+                     _host_ms(lambda: module(rgb, lidar), 5)))
+            pm._eval_operands = kept
+        fwd = {name: (_median([d for d, _ in v]), _median([h for _, h in v]))
+               for name, v in fwd.items()}
+        print(f"BN-ReLU {label}: the fold cache's {modules} checks {check_ms:.4f} ms of host a "
+              f"forward; the forward (in turns), device "
+              f"time alone / host enqueue: kept operands and the kernel {fwd['kept'][0]:.3f} / "
+              f"{fwd['kept'][1]:.3f} ms, the per-call fold and passes {fwd['per call'][0]:.3f} / "
+              f"{fwd['per call'][1]:.3f} ms")
+        key = "b256" if batch == 256 else "full"
+        entry.update({f"ms_{key}": dev["kernel"], f"plain_ms_{key}": dev["plain"],
+                      f"per_call_passes_ms_{key}": dev["three"], f"bound_ms_{key}": bound_ms,
+                      f"host_ms_{key}": host["kernel"],
+                      f"per_call_passes_host_ms_{key}": host["three"],
+                      f"forward_device_ms_{key}": fwd["kept"][0],
+                      f"forward_host_ms_{key}": fwd["kept"][1],
+                      f"per_call_forward_device_ms_{key}": fwd["per call"][0],
+                      f"per_call_forward_host_ms_{key}": fwd["per call"][1],
+                      f"fold_check_ms_{key}": check_ms, f"sites_{key}": sites})
+        del module, ops, rgb, lidar
+        torch.cuda.empty_cache()
+    for shape in BN_RELU_EXTRA:
+        for dt in (torch.bfloat16, torch.float32):
+            check(shape, dt)
+    scale, shift = torch.ones(16, device=device), torch.zeros(16, device=device)
+    refused = []
+    for name, x, error in (
+            ("NCHW-contiguous", torch.zeros(2, 16, 4, 4, device=device), ValueError),
+            ("float16", torch.zeros(2, 4, 4, 16, device=device).half().permute(0, 3, 1, 2),
+             TypeError),
+            ("off 16 bytes", torch.zeros(2 * 4 * 4 * 16 + 3, dtype=torch.bfloat16,
+                                         device=device)[3:].view(2, 4, 4, 16).permute(0, 3, 1, 2),
+             ValueError)):
+        try:
+            br.bn_relu(x, scale, shift)
+        except error:
+            refused.append(name)
+    if len(refused) != 3:
+        raise AssertionError(f"BN-ReLU took what it must refuse: only {refused} raised")
+    print(f"BN-ReLU checks: every site shape of both forwards and {len(BN_RELU_EXTRA)} more, "
+          f"bf16 within one ulp of the exact value rounded once and f32 within 1e-6 of the "
+          f"plain version (max abs err {worst:.3e}); refused: {', '.join(refused)}")
+    entry.update(max_abs_err=worst,
+                 ms=entry["ms_b256"], plain_ms=entry["plain_ms_b256"],
+                 bound_ms=entry["bound_ms_b256"], bound_by="bytes")
+    return entry
+
+
 def _launch_counts():
-    from dmmfods_tpu_torch.ops import (dense_block, dense_block_strip, fused,
+    from dmmfods_tpu_torch.ops import (bn_relu, dense_block, dense_block_strip, fused,
                                        phase_head, stem_pool)
 
     return {"K1": fused.K1_LAUNCHES, "K2": dense_block_strip.K2_LAUNCHES,
             "K3": phase_head.K3_LAUNCHES, "K4": dense_block.K4_LAUNCHES,
-            "K5": dense_block_strip.K5_LAUNCHES, "K6": stem_pool.K6_LAUNCHES}
+            "K5": dense_block_strip.K5_LAUNCHES, "K6": stem_pool.K6_LAUNCHES,
+            "bn_relu": bn_relu.BN_RELU_LAUNCHES}
 
 
 def _reset_counts():
@@ -588,6 +835,25 @@ def _reset_counts():
 
 def _counts():
     return {name: count.value for name, count in _launch_counts().items()}
+
+
+def _bn_relu_sites(spec, kernel_blocks=(), k6=False):
+    """The eval BN-ReLU pass's launches in one forward of a mid-fusion model
+    (``spec``), from the architecture alone: each stem's norm0 unless K6
+    takes the stems (``k6``), two for each layer of a dense block that no
+    kernel takes (``kernel_blocks``: the 1-based ``(stream, block)`` pairs
+    K2, K4 or K5 takes whole), one for each transition (stream 2 has one
+    after each of its blocks), two for each decoder stage, and without
+    ``use_fused_kernels`` the fuse's one and the head's two."""
+    if spec.fusion != "mid":
+        raise ValueError(f"counts the sites of mid fusion only, got {spec.fusion!r}")
+    sites = 0 if k6 else 2
+    for stream, blocks in ((1, len(spec.block_config)), (2, spec.concat_before_block_num - 1)):
+        sites += sum(2 * layers for i, layers in enumerate(spec.block_config[:blocks])
+                     if (stream, i + 1) not in kernel_blocks)
+        sites += min(blocks, len(spec.block_config) - 1)
+    sites += 2 * len(spec.decoder_stage_features())
+    return sites if spec.use_fused_kernels else sites + 3
 
 
 def _per_batch(counts, batches, want):
@@ -703,7 +969,8 @@ def _ptxas_report(build_log, lib):
 
 
 # torch.profiler's kernel names -> the classes of the device-time breakdown
-PROFILE_CLASSES = (("K1", ("concat_bn_relu",)), ("K2", ("dense_layer",)),
+PROFILE_CLASSES = (("BN-ReLU", ("bn_relu_kernel",)),
+                   ("K1", ("concat_bn_relu",)), ("K2", ("dense_layer",)),
                    ("K3", ("phase_head",)),
                    ("K4", ("dense_block_kernel", "dense_block_mma_kernel")),
                    ("K5", ("dense_block_recompute",)), ("K6", ("stem_pool",)),
@@ -762,15 +1029,19 @@ def _print_profile(tag, fn, event_ms, label, steps=3):
                       sorted(by_class.items(), key=lambda kv: -kv[1])))
 
 
-def _serve_buckets(engine, rng, h, w, label):
-    """One synchronous request per bucket of the opt-in engine, each one
-    device batch: its launches must be ``OPT_IN_LAUNCHES``. Returns the
-    summed counts and the b8 request with its heat maps."""
+def _serve_buckets(engine, spec, rng, h, w, label):
+    """One synchronous request per bucket of the opt-in engine (``spec``'s
+    model), each one device batch: its launches must be
+    ``OPT_IN_LAUNCHES``, and the eval BN-ReLU pass's the sites the blocks
+    K4 leaves (``OPT_IN_KERNEL_BLOCKS``) and, past b1, the stems. Returns
+    the summed counts and the b8 request with its heat maps."""
     import numpy as np
 
-    total = {name: 0 for name in OPT_IN_LAUNCHES[1]}
+    total = dict.fromkeys(_launch_counts(), 0)
     kept = None
     for bucket, want in OPT_IN_LAUNCHES.items():
+        want = {**want, "bn_relu": _bn_relu_sites(spec, OPT_IN_KERNEL_BLOCKS[bucket],
+                                                  k6=bool(want["K6"]))}
         rgb = rng.uniform(0, 1, (bucket, h, w, 3)).astype(np.float32)
         lidar = rng.uniform(0, 1, (bucket, h, w, 1)).astype(np.float32)
         before = engine.device_batches
@@ -867,7 +1138,8 @@ def _train(bundle, cfg, device, gen, path_counts, batch=TRAIN_BATCH, steps=TRAIN
         for k, v in metrics.items()
         if k != "ap_bin_counts") + f", ap_bin_counts {int(metrics['ap_bin_counts'][1].sum())} "
         f"pixels; ", end="")
-    _per_batch(path_counts[-1], 1, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
+    _per_batch(path_counts[-1], 1, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0,
+                                        bn_relu=_bn_relu_sites(bundle.spec)))
     _check_eval_metrics(metrics)
     trained = forward(rgb, lidar)
     fresh = DenseUNetLidar(bundle.spec, generator=torch.Generator().manual_seed(SEED + 1))
@@ -1128,7 +1400,8 @@ def _raw_record(state, cfg, device, path_counts):
         path_counts.append(_counts())
         print(f"make_eval_step_{name} b{TRAIN_BATCH}: loss {metrics['loss'].item():.2f}, AP "
               f"{[round(x, 5) for x in metrics['ap_per_class'].tolist()]}; ", end="")
-        _per_batch(path_counts[-1], 1, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
+        _per_batch(path_counts[-1], 1, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0,
+                                            bn_relu=_bn_relu_sites(module.spec)))
         _check_eval_metrics(metrics)
     got = evals["ht"][0](state, image, lidar, boxes)
     want = trainer.make_eval_step(module, cfg)(state, image, lidar, heat)
@@ -1207,7 +1480,9 @@ def _serve_densenet161(cfgs, device, rng, path_counts):
         _check_heat_maps([(rgb, lidar)], served, FULL_HEIGHT, FULL_WIDTH)
         print(f"densenet161 {FULL_HEIGHT}x{FULL_WIDTH} {path}: one synchronous request in "
               f"{time.perf_counter() - t0:.2f} s wall (the first call); ", end="")
-        _per_batch(path_counts[-1], engine.device_batches, DENSENET161_LAUNCHES[path])
+        _per_batch(path_counts[-1], engine.device_batches,
+                   {**DENSENET161_LAUNCHES[path],
+                    "bn_relu": _bn_relu_sites(bundle.spec, FULL_KERNEL_BLOCKS)})
         if path == "default":
             jax_gates, port_gates = gates
             print(f"densenet161 gates: JAX's run {jax_gates} here, the port's {port_gates}: "
@@ -1238,7 +1513,8 @@ def _serve_densenet161(cfgs, device, rng, path_counts):
         _check_heat_maps([(rgb, lidar)], [out], HEIGHT, WIDTH)
         print(f"densenet161 {HEIGHT}x{WIDTH} b{batch} K4 path: ", end="")
         _per_batch(path_counts[-1], engine.device_batches - before,
-                   DENSENET161_LAUNCHES["K4 path"])
+                   {**DENSENET161_LAUNCHES["K4 path"],
+                    "bn_relu": _bn_relu_sites(bundle.spec, K4_KERNEL_BLOCKS_161)})
         _served_vs_f32(bundle, rgb, lidar, out, device,
                        f"densenet161 {HEIGHT}x{WIDTH} b{batch} K4 path")
     return engines
@@ -1513,6 +1789,7 @@ def main() -> int:
             "K6", f"x {tuple(x.shape)} F={shape[-1]}", out, ref))
     del x, folded, x_lo, raw, consts, w7, packed, out, out2, out5, ref
     torch.cuda.empty_cache()
+    bn_relu_entry = _bn_relu_phase(device)
 
     with tempfile.TemporaryDirectory() as host:
         cfg, cfg3, cfg_opt, cfg3_opt, cfg3_k5, cfg_train, cfg_nf = (
@@ -1562,7 +1839,8 @@ def main() -> int:
     print(f"served {len(requests)} requests ({sum(r[0].shape[0] for r in requests)} "
           f"frames) in {batches} device batches ({warm_batches} warm-up), "
           f"{serve_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0))
+    _per_batch(path_counts[-1], batches, dict(K1=1, K2=0, K3=0, K4=0, K5=0, K6=0,
+                                              bn_relu=_bn_relu_sites(spec)))
 
     a, b, out = captured[warm_batches]   # the first batch the worker served
     with torch.inference_mode():
@@ -1590,7 +1868,8 @@ def main() -> int:
     _check_heat_maps(requests[-1:], [served_nf], HEIGHT, WIDTH)
     print(f"use_fused_kernels False, {HEIGHT}x{WIDTH}, {requests[-1][0].shape[0]} frames: ",
           end="")
-    _per_batch(path_counts[-1], engine_nf.device_batches, NO_FUSED_LAUNCHES)
+    _per_batch(path_counts[-1], engine_nf.device_batches,
+               {**NO_FUSED_LAUNCHES, "bn_relu": _bn_relu_sites(bundle_nf.spec)})
     diff = np.abs(served_nf - results[-1])
     print(f"served bf16 without the fused kernels vs the default path (K1, the phase-space "
           f"head): max abs diff {diff.max():.3e} (mean {diff.mean():.3e}) <= bound "
@@ -1617,7 +1896,9 @@ def main() -> int:
     _check_heat_maps(requests3, results3, FULL_HEIGHT, FULL_WIDTH)
     print(f"served {len(requests3)} requests of 1 frame at {FULL_HEIGHT}x{FULL_WIDTH} in "
           f"{batches3} device batches (1 warm-up), {serve3_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches3, dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=0))
+    _per_batch(path_counts[-1], batches3, dict(
+        K1=1, K2=4, K3=1, K4=0, K5=0, K6=0,
+        bn_relu=_bn_relu_sites(bundle3.spec, FULL_KERNEL_BLOCKS)))
     _served_vs_f32(bundle3, *requests3[-1], results3[-1], device,
                    f"{FULL_HEIGHT}x{FULL_WIDTH}")
     torch.cuda.empty_cache()
@@ -1631,7 +1912,7 @@ def main() -> int:
     t0 = time.perf_counter()
     engine_opt.warmup()
     total, (rgb8, lidar8, served8) = _serve_buckets(
-        engine_opt, rng, HEIGHT, WIDTH, f"opt-in {HEIGHT}x{WIDTH}")
+        engine_opt, bundle_opt.spec, rng, HEIGHT, WIDTH, f"opt-in {HEIGHT}x{WIDTH}")
     path_counts.append(total)
     before = engine_opt.device_batches
     _reset_counts()
@@ -1643,13 +1924,21 @@ def main() -> int:
     path_counts.append(counts)
     served = engine_opt.device_batches - before
     _check_heat_maps(requests[:3], results_opt, HEIGHT, WIDTH)
-    # the worker coalesces, so the buckets of its batches are not known here
+    # the worker coalesces, so the buckets of its batches are read from the
+    # launches: K6 2 at b1 only, K4 3, 4 and 5 at b1, b8 and b32
+    mix = {1: counts["K6"] // 2}
+    mix[32] = counts["K4"] - 3 * mix[1] - 4 * (served - mix[1])
+    mix[8] = served - mix[1] - mix[32]
+    sites = sum(n * _bn_relu_sites(bundle_opt.spec, OPT_IN_KERNEL_BLOCKS[bucket],
+                                   k6=bucket == 1) for bucket, n in mix.items())
     if not (counts["K1"] == served and counts["K2"] == counts["K3"] == counts["K5"] == 0
             and 3 * served <= counts["K4"] <= 5 * served
-            and counts["K6"] % 2 == 0 and counts["K6"] <= 2 * served):
+            and counts["K6"] % 2 == 0 and counts["K6"] <= 2 * served
+            and min(mix.values()) >= 0 and counts["bn_relu"] == sites):
         raise AssertionError(f"worker at {HEIGHT}x{WIDTH} with the opt-ins: launches "
                              f"{counts} for {served} device batches")
-    print(f"worker with the opt-ins: {served} device batches, launches {counts}, "
+    print(f"worker with the opt-ins: {served} device batches (by bucket {mix}), launches "
+          f"{counts} (the eval BN-ReLU pass's: {sites} sites), "
           f"{time.perf_counter() - t0:.2f} s wall with warm-up")
     _served_vs_f32(bundle_opt, rgb8, lidar8, served8, device,
                    f"{HEIGHT}x{WIDTH} opt-ins (K4, K6)")
@@ -1665,7 +1954,9 @@ def main() -> int:
     _check_heat_maps(requests3, results3_opt, FULL_HEIGHT, FULL_WIDTH)
     print(f"opt-in {FULL_HEIGHT}x{FULL_WIDTH}: served {len(requests3)} requests in "
           f"{batches3_opt} device batches, {serve3_opt_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches3_opt, dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=2))
+    _per_batch(path_counts[-1], batches3_opt, dict(
+        K1=1, K2=4, K3=1, K4=0, K5=0, K6=2,
+        bn_relu=_bn_relu_sites(bundle3_opt.spec, FULL_KERNEL_BLOCKS, k6=True)))
     _served_vs_f32(bundle3_opt, *requests3[-1], results3_opt[-1], device,
                    f"{FULL_HEIGHT}x{FULL_WIDTH} opt-ins (K6)")
     torch.cuda.empty_cache()
@@ -1683,7 +1974,9 @@ def main() -> int:
     _check_heat_maps(requests3, results3_k5, FULL_HEIGHT, FULL_WIDTH)
     print(f"K5 path {FULL_HEIGHT}x{FULL_WIDTH}: served {len(requests3)} requests in "
           f"{batches3_k5} device batches, {serve3_k5_s:.2f} s wall with warm-up")
-    _per_batch(path_counts[-1], batches3_k5, dict(K1=1, K2=0, K3=1, K4=0, K5=4, K6=0))
+    _per_batch(path_counts[-1], batches3_k5, dict(
+        K1=1, K2=0, K3=1, K4=0, K5=4, K6=0,
+        bn_relu=_bn_relu_sites(bundle3_k5.spec, FULL_KERNEL_BLOCKS)))
     _served_vs_f32(bundle3_k5, *requests3[-1], results3_k5[-1], device,
                    f"{FULL_HEIGHT}x{FULL_WIDTH} K5 path")
     torch.cuda.empty_cache()
@@ -2040,7 +2333,8 @@ def main() -> int:
     _time_train(tag, train_state, train_step, eval_step, gen, device)
     _time_raw(tag, train_state, train_step, raw_record, cfg_train)
 
-    launches = {name: sum(c[name] for c in path_counts) for name in worst}
+    launches = {name: sum(c[name] for c in path_counts) for name in _launch_counts()}
+    bn_relu_entry["launches"] = launches["bn_relu"]
     print(json.dumps({"kernels": [
         {"name": "concat_bn_relu_conv1x1", "route": "cuda",
          "source": "dmmfods_tpu_torch/csrc/concat_bn_relu_conv1x1.cu",
@@ -2113,6 +2407,7 @@ def main() -> int:
             for key, field in (("ms", "k5"), ("plain_ms", "plain"), ("model_loop_ms", "loop"),
                                ("k2_ms", "k2"), ("bound_ms", None))},
          "path_161_ms": fwd161["K5 path"]},
+        bn_relu_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,18 +61,23 @@ memory; permuting a contiguous NHWC tensor gives exactly that, at no cost.
 
 Dtypes, by explicit casts (no autocast): params and BN running stats are
 float32. The model casts its inputs to ``spec.dtype`` (``gpu.compute_dtype``,
-bfloat16 by default) and every conv casts its weight to the activation dtype
-at the call. In eval mode every BN folds its running stats into a
-per-channel ``(gamma, beta)`` in float32 and applies them in the activation
-dtype, as ``dmmfods_tpu/ops/normalization.py`` does; in train mode it is
-``nn.BatchNorm2d``'s own batch-stat forward.
+bfloat16 by default) and every conv runs on its weight cast to the
+activation dtype. In eval mode every BN folds its running stats into a
+per-channel ``(scale, shift)`` in float32, and every BN-ReLU of the plain
+path is the f32 arithmetic rounded once to the activation dtype
+(``ops/bn_relu.py``). With autograd off, each module keeps its folds and
+cast conv weights between calls (:func:`_eval_operands`) and the BN-ReLU is
+one pass, :func:`..ops.bn_relu.bn_relu` (the hand-written kernel on the
+card); a forward that records gradients folds and casts at every call and
+runs the pass's plain version, so both give the same values. In train mode
+a BN is ``nn.BatchNorm2d``'s own batch-stat forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import math
+import operator
 from typing import Any, Tuple
 
 import torch
@@ -80,6 +85,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import tracing
+from ..ops.bn_relu import BN_FOLDS, bn_relu, bn_relu_operands, bn_relu_reference
 from ..ops.dense_block import dense_block, fold_block_params
 from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
@@ -247,41 +253,96 @@ def _batch_norm(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
-def _conv(x, conv: nn.Conv2d):
-    """``conv`` in the activation dtype (its f32 weight cast at the call)."""
-    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+def _conv(x, conv: nn.Conv2d, weight=None):
+    """``conv`` in the activation dtype: on ``weight``, its weight cast
+    beforehand (:func:`_eval_operands`), or on its f32 weight cast at the
+    call."""
+    weight = conv.weight.to(x.dtype) if weight is None else weight
+    return F.conv2d(x, weight, None, conv.stride, conv.padding)
 
 
-def _bn(x, norm: nn.BatchNorm2d):
-    """Eval: the f32-folded running stats applied in ``x``'s dtype. Train:
-    ``nn.BatchNorm2d``'s batch statistics and running-stat update."""
+def _bn_relu(x, norm, operands=None):
+    """BN then ReLU. Train: ``nn.BatchNorm2d``'s batch statistics and
+    running-stat update, then a ReLU. Eval: one pass of the f32 arithmetic
+    rounded once to ``x``'s dtype, on ``operands``, the norm's ``(scale,
+    shift)`` folded beforehand (:func:`_eval_operands`), through
+    :func:`..ops.bn_relu.bn_relu` (the kernel on the card); or, where the
+    forward records gradients, on the norm folded at the call, through its
+    plain version, which autograd differentiates."""
+    if operands is not None:
+        return bn_relu(x, *operands)
     if norm.training:
-        return norm(x)
-    gamma = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
-    beta = norm.bias - norm.running_mean * gamma
-    dt = x.dtype
-    return x * gamma.to(dt)[:, None, None] + beta.to(dt)[:, None, None]
+        return F.relu(norm(x))
+    return bn_relu_reference(x, *bn_relu_operands(norm))
 
 
-def _bn_relu(x, norm):
-    return F.relu(_bn(x, norm))
+_data_ptr = torch.Tensor.data_ptr
+_version = operator.attrgetter("_version")
 
 
 def _fold_key(tensors):
-    """What a fold cache keys on: each tensor, an alias of the storage it had
-    (held, so no new tensor can take that address while the key lives) and
-    its version counter."""
-    return tuple((t, t.detach(), t._version) for t in tensors)
+    """What a fold cache keys on: the tensors, an alias of the storage each
+    had (held, so no new tensor can take that address while the key lives),
+    their addresses and the sum of their version counters."""
+    tensors = tuple(tensors)
+    return (tensors, [t.detach() for t in tensors], list(map(_data_ptr, tensors)),
+            sum(map(_version, tensors)))
 
 
 def _same_tensors(key, tensors):
     """Whether ``tensors`` are the very tensors of ``key`` (by identity), on
     the storage they had and at the version they had: a parameter replaced,
-    moved, or edited in place fails it."""
-    tensors = tuple(tensors)
-    return len(tensors) == len(key) and all(
-        t is kept and t.data_ptr() == alias.data_ptr() and t._version == version
-        for t, (kept, alias, version) in zip(tensors, key))
+    moved, or edited in place fails it. A version counter only grows, so
+    for the same tensors an equal sum means every version is the same."""
+    kept, _, ptrs, versions = key
+    return (len(tensors) == len(kept) and all(map(operator.is_, tensors, kept))
+            and list(map(_data_ptr, tensors)) == ptrs
+            and sum(map(_version, tensors)) == versions)
+
+
+def _fold_tensors(parts):
+    """What a fold of ``parts`` (BNs and convs) reads: each BN's weight,
+    bias and running stats, each conv's weight, from the modules' own dicts
+    (walked at every eval forward, so kept cheap); and each BN's
+    ``num_batches_tracked``, the one buffer whose version a train-mode
+    forward bumps (its running-stat update leaves theirs as they were)."""
+    tensors = []
+    for part in parts:
+        params = part._parameters
+        if isinstance(part, nn.BatchNorm2d):
+            stats = part._buffers
+            tensors += (params["weight"], params["bias"], stats["running_mean"],
+                        stats["running_var"], stats["num_batches_tracked"])
+        else:
+            tensors.append(params["weight"])
+    return tensors
+
+
+def _eval_operands(module, x, parts):
+    """The operands of ``module``'s plain path for the activation ``x``, one
+    for each module of ``parts`` in order: a BN folded to the f32 ``(scale,
+    shift)`` of :func:`..ops.bn_relu.bn_relu_operands`, a conv's weight cast
+    to ``x``'s dtype. Made once per fold (each fold adds one to
+    ``BN_FOLDS``) and kept on ``module._eval_ops`` while the dtype is the
+    same and every parameter and buffer of ``parts`` is the very tensor it
+    was, on the same storage, at the same version (:func:`_same_tensors`):
+    a replaced, moved, cast, reloaded or in-place edited one folds anew.
+
+    Only an eval forward with autograd off takes them: in train mode the
+    BNs take batch statistics, and a forward that records gradients runs
+    the per-call fold, through which they flow (the kernel has no backward,
+    and the kept operands no graph). Then every operand is None."""
+    if module.training or torch.is_grad_enabled():
+        return (None,) * len(parts)
+    tensors = _fold_tensors(parts)
+    kept = module._eval_ops
+    if kept is None or kept[1] != x.dtype or not _same_tensors(kept[0], tensors):
+        with torch.no_grad():
+            ops = tuple(bn_relu_operands(p) if isinstance(p, nn.BatchNorm2d)
+                        else p.weight.to(x.dtype) for p in parts)
+        kept = module._eval_ops = (_fold_key(tensors), x.dtype, ops)
+        BN_FOLDS.add()
+    return kept[2]
 
 
 class DenseLayer(nn.Module):
@@ -291,15 +352,19 @@ class DenseLayer(nn.Module):
     def __init__(self, num_input_features, growth_rate, bn_size, drop_rate):
         super().__init__()
         mid = bn_size * growth_rate
+        # registered in the order the layer applies them: DenseBlock._parts
         self.norm1 = _batch_norm(num_input_features)
         self.conv1 = nn.Conv2d(num_input_features, mid, 1, bias=False)
         self.norm2 = _batch_norm(mid)
         self.conv2 = nn.Conv2d(mid, growth_rate, 3, padding=1, bias=False)
         self.drop_rate = float(drop_rate)
 
-    def forward(self, x):
-        y = _conv(_bn_relu(x, self.norm1), self.conv1)
-        y = _conv(_bn_relu(y, self.norm2), self.conv2)
+    def forward(self, x, ops=(None,) * 4):
+        """``ops``: the layer's eval operands (norm1, conv1, norm2, conv2)
+        from its block's fold (:func:`_eval_operands`), or Nones."""
+        n1, w1, n2, w2 = ops
+        y = _conv(_bn_relu(x, self.norm1, n1), self.conv1, w1)
+        y = _conv(_bn_relu(y, self.norm2, n2), self.conv2, w2)
         if self.drop_rate > 0:
             y = F.dropout(y, p=self.drop_rate, training=self.training)
         return y
@@ -310,8 +375,9 @@ class DenseBlock(nn.Module):
     reads the concat of the block input and every earlier layer's output.
     ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``,
     ``strip`` is ``ModelSpec.dense_block_strip``. The kernels' folded stacks
-    and the bf16 kernels' packed w1 and w3 are kept between calls and made
-    again when a parameter or buffer of the block changes (replaced, moved or
+    and the bf16 kernels' packed w1 and w3, and the plain loop's eval
+    operands (:func:`_eval_operands`), are kept between calls and made again
+    when a parameter or buffer of the block changes (replaced, moved or
     edited in place: :func:`_same_tensors`)."""
 
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
@@ -320,6 +386,7 @@ class DenseBlock(nn.Module):
         self.impl = impl
         self.strip = strip
         self._folded = None                   # (key, folded stacks, packed w1 and w3)
+        self._eval_ops = None                 # (key, dtype, the plain loop's operands)
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 num_input_features + i * growth_rate, growth_rate, bn_size,
@@ -335,17 +402,23 @@ class DenseBlock(nn.Module):
         if self._k4_eligible(x):
             out = dense_block(x.permute(0, 2, 3, 1).contiguous(), *self._kernel_operands())
             return out.permute(0, 3, 1, 2)
+        ops = _eval_operands(self, x, self._parts())
         features = x
-        for layer in self.children():
-            features = torch.cat([features, layer(features)], dim=1)
+        for i, layer in enumerate(self.children()):
+            features = torch.cat([features, layer(features, ops[4 * i:4 * i + 4])], dim=1)
         return features
+
+    def _parts(self):
+        """Each layer's norm1, conv1, norm2 and conv2, layer by layer: every
+        module that holds a parameter or buffer of the block."""
+        return [m for layer in self._modules.values() for m in layer._modules.values()]
 
     def _kernel_operands(self):
         """``(folded, packed)``: ``fold_block_params(self)`` and its
         ``pack_layer_weights``, made once per fold and kept while every
         parameter and buffer is the very tensor it was, on the same storage,
         at the same version."""
-        tensors = tuple(itertools.chain(self.parameters(), self.buffers()))
+        tensors = _fold_tensors(self._parts())
         if self._folded is None or not _same_tensors(self._folded[0], tensors):
             folded = fold_block_params(self)
             self._folded = (_fold_key(tensors), folded, pack_layer_weights(folded))
@@ -388,11 +461,13 @@ class Transition(nn.Module):
 
     def __init__(self, num_input_features, num_output_features):
         super().__init__()
+        self._eval_ops = None                 # (key, dtype, _eval_operands)
         self.norm = _batch_norm(num_input_features)
         self.conv = nn.Conv2d(num_input_features, num_output_features, 1, bias=False)
 
     def forward(self, x):
-        return F.avg_pool2d(_conv(_bn_relu(x, self.norm), self.conv), 2, 2)
+        n, w = _eval_operands(self, x, (self.norm, self.conv))
+        return F.avg_pool2d(_conv(_bn_relu(x, self.norm, n), self.conv, w), 2, 2)
 
 
 class Encoder(nn.Module):
@@ -410,6 +485,7 @@ class Encoder(nn.Module):
         init = spec.num_init_features
         self.spec = spec
         self._stem = None                     # (key, dtype, K6's operands)
+        self._eval_ops = None                 # (key, dtype, the plain stem's operands)
         self.conv0 = nn.Conv2d(in_channels, init, 7, stride=2, padding=3, bias=False)
         self.norm0 = _batch_norm(init)
         self.full_depth = up_to_block is None
@@ -449,7 +525,8 @@ class Encoder(nn.Module):
                               *self._stem_operands(x.dtype))
                 x = x.permute(0, 3, 1, 2)
             else:
-                x = _bn_relu(_conv(x, self.conv0), self.norm0)
+                w, n = _eval_operands(self, x, (self.conv0, self.norm0))
+                x = _bn_relu(_conv(x, self.conv0, w), self.norm0, n)
                 shapes = [tuple(x.shape[-2:])]
                 x = F.max_pool2d(x, 3, 2, 1)
         skips = []
@@ -510,12 +587,14 @@ class ConcatFuse(nn.Module):
         super().__init__()
         self.use_fused = use_fused
         self._fuse = None                     # (key, dtype, K1's operands)
+        self._eval_ops = None                 # (key, dtype, the plain path's operands)
         self.norm = _batch_norm(2 * num_features)
         self.conv = nn.Conv2d(2 * num_features, num_features, 1, bias=False)
 
     def forward(self, a, b):
         if self.training or not self.use_fused:
-            return _conv(_bn_relu(torch.cat([a, b], dim=1), self.norm), self.conv)
+            n, w = _eval_operands(self, a, (self.norm, self.conv))
+            return _conv(_bn_relu(torch.cat([a, b], dim=1), self.norm, n), self.conv, w)
         out = concat_bn_relu_conv1x1(
             a.permute(0, 2, 3, 1).contiguous(), b.permute(0, 2, 3, 1).contiguous(),
             scale=self.norm.weight, bias=self.norm.bias,
@@ -567,6 +646,7 @@ class DecoderStage(nn.Module):
 
     def __init__(self, in_channels, features):
         super().__init__()
+        self._eval_ops = None                 # (key, dtype, _eval_operands)
         self.norm0 = _batch_norm(in_channels)
         self.conv_reduce = nn.Conv2d(in_channels, features, 1, bias=False)
         self.norm1 = _batch_norm(features)
@@ -574,7 +654,8 @@ class DecoderStage(nn.Module):
     def forward(self, x, skip=None):
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
-        return _bn_relu(_conv(_bn_relu(x, self.norm0), self.conv_reduce), self.norm1)
+        n0, w, n1 = _eval_operands(self, x, (self.norm0, self.conv_reduce, self.norm1))
+        return _bn_relu(_conv(_bn_relu(x, self.norm0, n0), self.conv_reduce, w), self.norm1, n1)
 
 
 class Decoder(nn.Module):
@@ -638,6 +719,7 @@ class Head(nn.Module):
         self.fused_max_pixels = fused_max_pixels
         self._k3_weights = None               # (dtype, key, kernel_weights(...))
         self._phase_weights = None            # (dtype, key, phase_space_weights(...))
+        self._eval_ops = None                 # (key, dtype, the plain head's operands)
         self.norm0 = _batch_norm(up_channels + raw_channels)
         self.refine0 = nn.Conv2d(up_channels + raw_channels, mid_features, 3,
                                  padding=1, bias=False)
@@ -658,9 +740,11 @@ class Head(nn.Module):
                 return out.permute(0, 3, 1, 2)
             w0t, w4t = self._phase_space_weights(x_lo.dtype)
             return phase_space_head(x_lo, raw, g0=g0, b0=b0, g1=g1, b1=b1, w0t=w0t, w4t=w4t)
+        n0, w0, n1, w1 = _eval_operands(self, x_lo,
+                                        (self.norm0, self.refine0, self.norm1, self.refine1))
         x = torch.cat([F.interpolate(x_lo, scale_factor=2, mode="nearest"), raw], dim=1)
-        x = _conv(_bn_relu(x, self.norm0), self.refine0)
-        return _conv(_bn_relu(x, self.norm1), self.refine1)
+        x = _conv(_bn_relu(x, self.norm0, n0), self.refine0, w0)
+        return _conv(_bn_relu(x, self.norm1, n1), self.refine1, w1)
 
     def _kernel_weights(self, x_lo):
         """K3's folded weights for ``x_lo``'s dtype, from the cache while the

@@ -29,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("concat_bn_relu_conv1x1.cu", "dense_block_strip.cu", "phase_head.cu",
-           "dense_block.cu", "stem_pool.cu", "dense_block_recompute.cu")
+           "dense_block.cu", "stem_pool.cu", "dense_block_recompute.cu", "bn_relu.cu")
 HEADERS = ("dtype.cuh", "dense_layer_tile.cuh", "dense_layer_mma.cuh",
            "tensor_core.cuh")
 NVCC_FLAGS = (
@@ -123,6 +123,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
     fn = lib.dmm_stem_pool
     fn.argtypes = [p] * 5 + [ctypes.c_int] * 6 + [p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmm_bn_relu
+    fn.argtypes = [p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [p]
     fn.restype = ctypes.c_int
     fn = lib.dmm_dense_block_plan
     fn.argtypes = [ctypes.c_int] * 6 + [p]

@@ -58,7 +58,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     imported = set(proc.stdout.split())
-    for name in ("config", "ops.fused", "ops._build", "ops.dense_block",
+    for name in ("config", "ops.fused", "ops._build", "ops.bn_relu", "ops.dense_block",
                  "ops.dense_block_strip", "ops.phase_head", "ops.stem_pool",
                  "models.dense_unet_lidar", "models.weights", "serving", "losses",
                  "metrics", "optim", "trainer", "ops.preprocess", "data.native_io",

@@ -29,10 +29,12 @@ STAGES = ["model/stream_2", "model/encoder.stem", "model/encoder.block1",
           "model/encoder.transition2", "model/encoder.block3", "model/encoder.transition3",
           "model/encoder.block4", "model/decoder", "model/head"]
 
-# where the benchmark and chip_smoke.py read each kernel's launch counter
+# where the benchmark and chip_smoke.py read each kernel's launch counter,
+# and the BN-ReLU pass's launches and folds (chip_smoke.py)
 COUNTERS = [("fused", "K1_LAUNCHES"), ("dense_block_strip", "K2_LAUNCHES"),
             ("phase_head", "K3_LAUNCHES"), ("dense_block", "K4_LAUNCHES"),
-            ("dense_block_strip", "K5_LAUNCHES"), ("stem_pool", "K6_LAUNCHES")]
+            ("dense_block_strip", "K5_LAUNCHES"), ("stem_pool", "K6_LAUNCHES"),
+            ("bn_relu", "BN_RELU_LAUNCHES"), ("bn_relu", "BN_FOLDS")]
 
 
 def _tiny_config(tmp):
