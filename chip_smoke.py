@@ -62,9 +62,9 @@ exit code:
 4b. The eval BN-ReLU pass (``ops/bn_relu.py``, which replaces no TPU
    kernel): one bf16 eval forward of DenseNet-121 at 128x192 b256 and of
    DenseNet-161 at 1280x1920 b1 (mid fusion before blocks 2 and 3) launches
-   it once at each plain-path site (142 and 135) and folds each module's
-   operands once (``BN_FOLDS`` 15 and 13, then 0), a train-mode forward
-   launches none; the kernel against the exact value rounded once (bf16,
+   it once at each plain-path site (142 and 135) and folds each form of
+   eval operands it runs once (``BN_FOLDS`` 21 and 23, then 0), a
+   train-mode forward launches none; the kernel against the exact value rounded once (bf16,
    one ulp) and its plain version (f32, 1e-6) at every site shape the
    forwards met and at six more (channel counts not multiples of 8, a 1x1
    plane); NCHW-contiguous, float16 and an unaligned start refused. Timed
@@ -351,13 +351,17 @@ DENSENET161_LAUNCHES = {"default": dict(K1=1, K2=4, K3=1, K4=0, K5=0, K6=0),
                         "K4 path": dict(K1=1, K2=0, K3=0, K4=3, K5=0, K6=0)}
 # The eval BN-ReLU pass on the two benchmarked forwards (default config,
 # bf16): (constructor, mid fusion before block, batch, h, w, BN-ReLU sites of
-# the plain path, modules that fold). DenseNet-121 at 128x192: the stems,
-# blocks 1-4 and stream 2's block 1, the transitions and the decoder stages
-# (K1 takes the fuse, the phase-space head the head); DenseNet-161 at
-# 1280x1920: the same less blocks 1-2 of both streams (K2) and the head (K3).
+# the plain path, forms of eval operands the forward folds). DenseNet-121 at
+# 128x192: the sites of the stems, blocks 1-4 and stream 2's block 1, the
+# transitions and the decoder stages (K1 takes the fuse, the phase-space head
+# the head); DenseNet-161 at 1280x1920: the same less blocks 1-2 of both
+# streams (K2) and the head (K3). The folds: each of those modules' plain
+# form and the four transposed convs', and the fuse's (K1) and the head's
+# (phase space; K3), and at 1280x1920 the four K2 blocks' too: 15 + 4 + 2 and
+# 13 + 4 + 2 + 4.
 BN_RELU_FORWARDS = {
-    "densenet121 b256 128x192": ("densenet121_u_lidar", 2, 256, HEIGHT, WIDTH, 142, 15),
-    "densenet161 b1 1280x1920": ("densenet161_u_lidar", 3, 1, FULL_HEIGHT, FULL_WIDTH, 135, 13),
+    "densenet121 b256 128x192": ("densenet121_u_lidar", 2, 256, HEIGHT, WIDTH, 142, 21),
+    "densenet161 b1 1280x1920": ("densenet161_u_lidar", 3, 1, FULL_HEIGHT, FULL_WIDTH, 135, 23),
 }
 # and channel counts past the sites': not a multiple of 8 (a vector spans two
 # rows), fewer than 8, one channel, a 1x1 plane
@@ -631,17 +635,17 @@ def _k6_inputs(gen, batch, h, w, c, f, dtype, device):
 def _bn_relu_phase(device):
     """Phase 4b: the eval BN-ReLU pass (``ops/bn_relu.py``). One bf16 eval
     forward of each of ``BN_RELU_FORWARDS`` launches it once per plain-path
-    site and folds once per module, a second forward folds nothing, and a
-    train-mode forward launches none; then the kernel against the exact value
-    rounded once (bf16: within one ulp) and against its plain version (f32:
-    1e-6) at every site shape the forward met and at ``BN_RELU_EXTRA``; a
-    layout and dtype it does not take raise. Timed, as device time alone:
-    the forward's sites in sequence as the kernel, as its plain version and
-    as the per-call passes it replaces (a broadcast mul and add in bf16, a
-    ReLU), against the bound of their bytes; the host's time to enqueue the
-    sites both ways; the fold cache's check; and the forward on kept
-    operands in turns with the per-call fold. Returns the kernel's JSON
-    entry."""
+    site and folds once per form of eval operands it runs, a second forward
+    folds nothing, and a train-mode forward launches none; then the kernel
+    against the exact value rounded once (bf16: within one ulp) and against
+    its plain version (f32: 1e-6) at every site shape the forward met and at
+    ``BN_RELU_EXTRA``; a layout and dtype it does not take raise. Timed, as
+    device time alone: the forward's sites in sequence as the kernel, as its
+    plain version and as the per-call passes it replaces (a broadcast mul
+    and add in bf16, a ReLU), against the bound of their bytes; the host's
+    time to enqueue the sites both ways; the fold cache's checks; and the
+    forward on kept operands in turns with the plain path's per-call fold
+    and passes. Returns the kernel's JSON entry."""
     import torch
 
     from dmmfods_tpu_torch.config import get_config
@@ -652,7 +656,10 @@ def _bn_relu_phase(device):
              "replaces": None, "library_ms": LIBRARY_MS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = 0.0
-    kept, per_call = pm._eval_operands, (lambda module, x, parts: (None,) * len(parts))
+    kept = pm.eval_operands
+
+    def per_call(module, form, dtype, make):   # the plain path folded per call
+        return make() if form == "plain" else kept(module, form, dtype, make)
 
     def check(shape, dt):
         nonlocal worst
@@ -677,7 +684,7 @@ def _bn_relu_phase(device):
         if not ok or out.stride() != x.stride():
             raise AssertionError(f"BN-ReLU at {shape} {dt}: max err {err.max().item()}")
 
-    for label, (constructor, fuse, batch, h, w, sites, modules) in BN_RELU_FORWARDS.items():
+    for label, (constructor, fuse, batch, h, w, sites, forms) in BN_RELU_FORWARDS.items():
         cfg = get_config()
         cfg.model.concat_before_block_num = fuse
         module = getattr(pm, constructor)(config=cfg, device=device, seed=SEED).module
@@ -707,10 +714,10 @@ def _bn_relu_phase(device):
         shapes = shapes[:sites]
         elements = sum(math.prod(shape) for shape, _ in shapes)
         print(f"BN-ReLU {label}: BN_RELU_LAUNCHES per forward {[n for n, _ in counts]}, "
-              f"BN_FOLDS {[f for _, f in counts]} (want {sites} sites, {modules} folds once; "
-              f"hit share over 3 forwards {1 - sum(f for _, f in counts) / (3 * modules):.3f}), "
+              f"BN_FOLDS {[f for _, f in counts]} (want {sites} sites, {forms} folds once; "
+              f"hit share over 3 forwards {1 - sum(f for _, f in counts) / (3 * forms):.3f}), "
               f"train mode {train_launches}; {elements:,} elements a forward")
-        if (counts != [(sites, modules), (sites, 0), (sites, 0)] or train_launches
+        if (counts != [(sites, forms), (sites, 0), (sites, 0)] or train_launches
                 or len(shapes) != sites):
             raise AssertionError(f"BN-ReLU launches or folds off: {counts}, train "
                                  f"{train_launches}")
@@ -750,31 +757,33 @@ def _bn_relu_phase(device):
               f"{host['kernel']:.4f} ms, per-call passes {host['three']:.4f} ms")
         spent = []
 
-        def timed(module, x, parts):
+        def timed(module, form, dtype, make):
             t0 = time.perf_counter()
-            ops = kept(module, x, parts)
+            ops = kept(module, form, dtype, make)
             spent[-1] += time.perf_counter() - t0
             return ops
 
-        pm._eval_operands = timed
+        pm.eval_operands = timed
         with torch.inference_mode():
             for _ in range(5):
                 spent.append(0.0)
                 module(rgb, lidar)
-        pm._eval_operands = kept
+        pm.eval_operands = kept
         check_ms = _median(spent) * 1e3
         fwd = {}
         with torch.inference_mode():
-            for name, fn in (("kept", kept), ("per call", per_call), ("per call", per_call),
-                             ("kept", kept)):
-                pm._eval_operands = fn
+            for name, fn, run in (("kept", kept, br.bn_relu),
+                                  ("per call", per_call, br.bn_relu_reference),
+                                  ("per call", per_call, br.bn_relu_reference),
+                                  ("kept", kept, br.bn_relu)):
+                pm.eval_operands, pm.bn_relu = fn, run
                 fwd.setdefault(name, []).append(
                     (_device_ms(lambda: module(rgb, lidar), 5, sleep=200_000_000),
                      _host_ms(lambda: module(rgb, lidar), 5)))
-            pm._eval_operands = kept
+            pm.eval_operands, pm.bn_relu = kept, br.bn_relu
         fwd = {name: (_median([d for d, _ in v]), _median([h for _, h in v]))
                for name, v in fwd.items()}
-        print(f"BN-ReLU {label}: the fold cache's {modules} checks {check_ms:.4f} ms of host a "
+        print(f"BN-ReLU {label}: the fold cache's {forms} checks {check_ms:.4f} ms of host a "
               f"forward; the forward (in turns), device "
               f"time alone / host enqueue: kept operands and the kernel {fwd['kept'][0]:.3f} / "
               f"{fwd['kept'][1]:.3f} ms, the per-call fold and passes {fwd['per call'][0]:.3f} / "
@@ -2202,7 +2211,9 @@ def main() -> int:
         heads[fused] = head.to(device, memory_format=torch.channels_last).eval()
     x_nchw, raw_nchw = x_lo.permute(0, 3, 1, 2), raw.permute(0, 3, 1, 2)
     g0, b0, g1, b1 = (consts[k] for k in ("g0", "b0", "g1", "b1"))
-    w0t, w4t = heads[True]._phase_space_weights(x_lo.dtype)
+    with torch.no_grad():
+        w0t, w4t = (w.to(x_lo.dtype) for w in phase_head.phase_space_weights(
+            heads[True].refine0.weight, heads[True].refine1.weight, c_up))
     with torch.inference_mode():
         k3_161 = dict(zip(("ms", "plain_ms", "model_head_ms", "phase_space_ms"), _in_turns(
             lambda: phase_head.phase_head(x_lo, raw, **consts, weights=weights),

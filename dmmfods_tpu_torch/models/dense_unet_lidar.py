@@ -65,12 +65,14 @@ bfloat16 by default) and every conv runs on its weight cast to the
 activation dtype. In eval mode every BN folds its running stats into a
 per-channel ``(scale, shift)`` in float32, and every BN-ReLU of the plain
 path is the f32 arithmetic rounded once to the activation dtype
-(``ops/bn_relu.py``). With autograd off, each module keeps its folds and
-cast conv weights between calls (:func:`_eval_operands`) and the BN-ReLU is
-one pass, :func:`..ops.bn_relu.bn_relu` (the hand-written kernel on the
-card); a forward that records gradients folds and casts at every call and
-runs the pass's plain version, so both give the same values. In train mode
-a BN is ``nn.BatchNorm2d``'s own batch-stat forward.
+(``ops/bn_relu.py``). Every module's eval operands, in every form its paths
+take (the plain path's folds and cast weights, a kernel's folded and packed
+weights, the phase-space head's), come from one cache,
+:func:`eval_operands`: with autograd off they are made once per fold and
+kept, and the BN-ReLU is one pass, :func:`..ops.bn_relu.bn_relu` (the
+hand-written kernel on the card); a forward that records gradients makes
+them at every call and runs the pass's plain version, so both give the same
+values. In train mode a BN is ``nn.BatchNorm2d``'s own batch-stat forward.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ from ..ops.dense_block import eligible as dense_block_eligible
 from ..ops.dense_block_strip import dense_block_strip, dense_block_strip_recompute
 from ..ops.dense_block_strip import eligible as strip_eligible
 from ..ops.dense_block_strip import pack_layer_weights
-from ..ops.fused import concat_bn_relu_conv1x1, fold_bn, fuse_operands
+from ..ops.fused import concat_bn_relu_conv1x1, fuse_operands
 from ..ops.phase_head import kernel_weights as phase_head_weights
 from ..ops.phase_head import phase_head, phase_space_head, phase_space_weights
 from ..ops.phase_head import within_limits as phase_head_within_limits
@@ -253,27 +255,22 @@ def _batch_norm(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
-def _conv(x, conv: nn.Conv2d, weight=None):
-    """``conv`` in the activation dtype: on ``weight``, its weight cast
-    beforehand (:func:`_eval_operands`), or on its f32 weight cast at the
-    call."""
-    weight = conv.weight.to(x.dtype) if weight is None else weight
+def _conv(x, conv: nn.Conv2d, weight):
+    """``conv`` on ``weight``, its weight cast to the activation dtype
+    (:func:`_plain_form`)."""
     return F.conv2d(x, weight, None, conv.stride, conv.padding)
 
 
-def _bn_relu(x, norm, operands=None):
+def _bn_relu(x, norm, operands):
     """BN then ReLU. Train: ``nn.BatchNorm2d``'s batch statistics and
     running-stat update, then a ReLU. Eval: one pass of the f32 arithmetic
     rounded once to ``x``'s dtype, on ``operands``, the norm's ``(scale,
-    shift)`` folded beforehand (:func:`_eval_operands`), through
-    :func:`..ops.bn_relu.bn_relu` (the kernel on the card); or, where the
-    forward records gradients, on the norm folded at the call, through its
-    plain version, which autograd differentiates."""
-    if operands is not None:
-        return bn_relu(x, *operands)
+    shift)`` (:func:`_plain_form`), through :func:`..ops.bn_relu.bn_relu`
+    (the kernel on the card); or, where the forward records gradients,
+    through its plain version, which autograd differentiates."""
     if norm.training:
         return F.relu(norm(x))
-    return bn_relu_reference(x, *bn_relu_operands(norm))
+    return (bn_relu_reference if torch.is_grad_enabled() else bn_relu)(x, *operands)
 
 
 _data_ptr = torch.Tensor.data_ptr
@@ -303,7 +300,7 @@ def _same_tensors(key, tensors):
 def _fold_tensors(parts):
     """What a fold of ``parts`` (BNs and convs) reads: each BN's weight,
     bias and running stats, each conv's weight, from the modules' own dicts
-    (walked at every eval forward, so kept cheap); and each BN's
+    (walked at every eval call, so kept cheap); and each BN's
     ``num_batches_tracked``, the one buffer whose version a train-mode
     forward bumps (its running-stat update leaves theirs as they were)."""
     tensors = []
@@ -318,31 +315,44 @@ def _fold_tensors(parts):
     return tensors
 
 
-def _eval_operands(module, x, parts):
-    """The operands of ``module``'s plain path for the activation ``x``, one
-    for each module of ``parts`` in order: a BN folded to the f32 ``(scale,
-    shift)`` of :func:`..ops.bn_relu.bn_relu_operands`, a conv's weight cast
-    to ``x``'s dtype. Made once per fold (each fold adds one to
-    ``BN_FOLDS``) and kept on ``module._eval_ops`` while the dtype is the
-    same and every parameter and buffer of ``parts`` is the very tensor it
-    was, on the same storage, at the same version (:func:`_same_tensors`):
-    a replaced, moved, cast, reloaded or in-place edited one folds anew.
+def eval_operands(module, form, dtype, make):
+    """The operands ``make()`` builds from ``module``'s parameters for the
+    path named ``form``, at activation ``dtype``: the one cache of every
+    module's eval operands. In eval with autograd off (``torch.no_grad`` or
+    ``torch.inference_mode``) they are made once per fold (each fold adds
+    one to ``BN_FOLDS``) and kept in ``module._operands``, keyed by ``(form,
+    dtype)``, while every parameter and buffer of ``module._parts()`` is the
+    very tensor it was, on the same storage, at the same version
+    (:func:`_same_tensors`): a replaced, moved, cast, reloaded or in-place
+    edited one folds anew.
 
-    Only an eval forward with autograd off takes them: in train mode the
-    BNs take batch statistics, and a forward that records gradients runs
-    the per-call fold, through which they flow (the kernel has no backward,
-    and the kept operands no graph). Then every operand is None."""
+    In train mode, or where autograd records, ``make`` runs at the call and
+    nothing is kept: the gradients flow through it (no kernel has a
+    backward, and kept operands no graph)."""
     if module.training or torch.is_grad_enabled():
-        return (None,) * len(parts)
-    tensors = _fold_tensors(parts)
-    kept = module._eval_ops
-    if kept is None or kept[1] != x.dtype or not _same_tensors(kept[0], tensors):
-        with torch.no_grad():
-            ops = tuple(bn_relu_operands(p) if isinstance(p, nn.BatchNorm2d)
-                        else p.weight.to(x.dtype) for p in parts)
-        kept = module._eval_ops = (_fold_key(tensors), x.dtype, ops)
+        return make()
+    tensors = _fold_tensors(module._parts())
+    kept = vars(module).setdefault("_operands", {})
+    entry = kept.get((form, dtype))
+    if entry is None or not _same_tensors(entry[0], tensors):
+        entry = kept[form, dtype] = (_fold_key(tensors), make())
         BN_FOLDS.add()
-    return kept[2]
+    return entry[1]
+
+
+def _plain_form(parts, dtype):
+    """The plain path's operands for activations of ``dtype``, one for each
+    module of ``parts`` in order: a BN folded to the f32 ``(scale, shift)``
+    of :func:`..ops.bn_relu.bn_relu_operands` (None in train mode, where it
+    takes batch statistics), a conv's weight cast to ``dtype``."""
+    return tuple(p.weight.to(dtype) if not isinstance(p, nn.BatchNorm2d)
+                 else None if p.training else bn_relu_operands(p) for p in parts)
+
+
+def _plain_operands(module, dtype):
+    """``module``'s plain form, :func:`_plain_form` of its ``_parts()``,
+    from :func:`eval_operands`."""
+    return eval_operands(module, "plain", dtype, lambda: _plain_form(module._parts(), dtype))
 
 
 class DenseLayer(nn.Module):
@@ -359,10 +369,11 @@ class DenseLayer(nn.Module):
         self.conv2 = nn.Conv2d(mid, growth_rate, 3, padding=1, bias=False)
         self.drop_rate = float(drop_rate)
 
-    def forward(self, x, ops=(None,) * 4):
-        """``ops``: the layer's eval operands (norm1, conv1, norm2, conv2)
-        from its block's fold (:func:`_eval_operands`), or Nones."""
-        n1, w1, n2, w2 = ops
+    def forward(self, x, ops=None):
+        """``ops``: the layer's plain operands (norm1, conv1, norm2, conv2),
+        kept by its block (:func:`eval_operands`); made at the call where
+        not given."""
+        n1, w1, n2, w2 = _plain_form(self._modules.values(), x.dtype) if ops is None else ops
         y = _conv(_bn_relu(x, self.norm1, n1), self.conv1, w1)
         y = _conv(_bn_relu(y, self.norm2, n2), self.conv2, w2)
         if self.drop_rate > 0:
@@ -374,19 +385,16 @@ class DenseBlock(nn.Module):
     """Concatenating dense block (torchvision ``_DenseBlock``): each layer
     reads the concat of the block input and every earlier layer's output.
     ``impl`` is the block's entry of ``ModelSpec.dense_block_impl``,
-    ``strip`` is ``ModelSpec.dense_block_strip``. The kernels' folded stacks
-    and the bf16 kernels' packed w1 and w3, and the plain loop's eval
-    operands (:func:`_eval_operands`), are kept between calls and made again
-    when a parameter or buffer of the block changes (replaced, moved or
-    edited in place: :func:`_same_tensors`)."""
+    ``strip`` is ``ModelSpec.dense_block_strip``. Its eval operands
+    (:func:`eval_operands`) are the plain loop's and the kernels': the
+    folded stacks with the bf16 kernels' packed w1 and w3
+    (:func:`_block_kernel_form`)."""
 
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
                  drop_rate, impl="concat", strip="auto"):
         super().__init__()
         self.impl = impl
         self.strip = strip
-        self._folded = None                   # (key, folded stacks, packed w1 and w3)
-        self._eval_ops = None                 # (key, dtype, the plain loop's operands)
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 num_input_features + i * growth_rate, growth_rate, bn_size,
@@ -397,32 +405,21 @@ class DenseBlock(nn.Module):
         then K4, else the loop."""
         if self._strip_eligible(x):
             run = dense_block_strip_recompute if self.strip == "on" else dense_block_strip
-            out = run(x.permute(0, 2, 3, 1).contiguous(), *self._kernel_operands())
-            return out.permute(0, 3, 1, 2)
-        if self._k4_eligible(x):
-            out = dense_block(x.permute(0, 2, 3, 1).contiguous(), *self._kernel_operands())
-            return out.permute(0, 3, 1, 2)
-        ops = _eval_operands(self, x, self._parts())
-        features = x
-        for i, layer in enumerate(self.children()):
-            features = torch.cat([features, layer(features, ops[4 * i:4 * i + 4])], dim=1)
-        return features
+        elif self._k4_eligible(x):
+            run = dense_block
+        else:
+            ops = _plain_operands(self, x.dtype)
+            features = x
+            for i, layer in enumerate(self.children()):
+                features = torch.cat([features, layer(features, ops[4 * i:4 * i + 4])], dim=1)
+            return features
+        operands = eval_operands(self, "kernels", x.dtype, lambda: _block_kernel_form(self))
+        return run(x.permute(0, 2, 3, 1).contiguous(), *operands).permute(0, 3, 1, 2)
 
     def _parts(self):
         """Each layer's norm1, conv1, norm2 and conv2, layer by layer: every
         module that holds a parameter or buffer of the block."""
         return [m for layer in self._modules.values() for m in layer._modules.values()]
-
-    def _kernel_operands(self):
-        """``(folded, packed)``: ``fold_block_params(self)`` and its
-        ``pack_layer_weights``, made once per fold and kept while every
-        parameter and buffer is the very tensor it was, on the same storage,
-        at the same version."""
-        tensors = _fold_tensors(self._parts())
-        if self._folded is None or not _same_tensors(self._folded[0], tensors):
-            folded = fold_block_params(self)
-            self._folded = (_fold_key(tensors), folded, pack_layer_weights(folded))
-        return self._folded[1:]
 
     def _strip_eligible(self, x, kernel_limits=True) -> bool:
         """JAX's ``DenseBlock._strip_eligible`` with the card in the TPU's
@@ -456,18 +453,27 @@ class DenseBlock(nn.Module):
             kernel_limits=kernel_limits)
 
 
+def _block_kernel_form(block):
+    """K2's, K4's and K5's operands: ``fold_block_params(block)`` and its
+    ``pack_layer_weights``."""
+    folded = fold_block_params(block)
+    return folded, pack_layer_weights(folded)
+
+
 class Transition(nn.Module):
     """BN-ReLU-Conv1x1-AvgPool2 (torchvision ``_Transition``)."""
 
     def __init__(self, num_input_features, num_output_features):
         super().__init__()
-        self._eval_ops = None                 # (key, dtype, _eval_operands)
         self.norm = _batch_norm(num_input_features)
         self.conv = nn.Conv2d(num_input_features, num_output_features, 1, bias=False)
 
     def forward(self, x):
-        n, w = _eval_operands(self, x, (self.norm, self.conv))
+        n, w = _plain_operands(self, x.dtype)
         return F.avg_pool2d(_conv(_bn_relu(x, self.norm, n), self.conv, w), 2, 2)
+
+    def _parts(self):
+        return self.norm, self.conv
 
 
 class Encoder(nn.Module):
@@ -484,8 +490,6 @@ class Encoder(nn.Module):
         super().__init__()
         init = spec.num_init_features
         self.spec = spec
-        self._stem = None                     # (key, dtype, K6's operands)
-        self._eval_ops = None                 # (key, dtype, the plain stem's operands)
         self.conv0 = nn.Conv2d(in_channels, init, 7, stride=2, padding=3, bias=False)
         self.norm0 = _batch_norm(init)
         self.full_depth = up_to_block is None
@@ -514,18 +518,18 @@ class Encoder(nn.Module):
         """``after_transition(i, x)``, if given, runs on the output of
         transition ``i`` (1-based) and replaces it: the mid-fusion hook.
         Where :func:`_stem_pool_ok` holds, the stem and pool0 run as K6 on
-        operands kept per fold (:meth:`_stem_operands`); the pre-pool stem
-        size still goes onto ``shapes`` for the decoder."""
+        its operands (:func:`_stem_pool_form`); the pre-pool stem size still
+        goes onto ``shapes`` for the decoder."""
         b, c, h, w = x.shape
         span = tracing.span if self.full_depth else tracing.no_span
         with span("model/encoder.stem"):
             if _stem_pool_ok(self.spec, b, h, w, c, self.training):
                 shapes = [(h // 2, w // 2)]
-                x = stem_pool(x.permute(0, 2, 3, 1).contiguous(),
-                              *self._stem_operands(x.dtype))
+                x = stem_pool(x.permute(0, 2, 3, 1).contiguous(), *eval_operands(
+                    self, "stem_pool", x.dtype, lambda: _stem_pool_form(self, x.dtype)))
                 x = x.permute(0, 3, 1, 2)
             else:
-                w, n = _eval_operands(self, x, (self.conv0, self.norm0))
+                w, n = _plain_operands(self, x.dtype)
                 x = _bn_relu(_conv(x, self.conv0, w), self.norm0, n)
                 shapes = [tuple(x.shape[-2:])]
                 x = F.max_pool2d(x, 3, 2, 1)
@@ -543,23 +547,19 @@ class Encoder(nn.Module):
                     x = after_transition(i + 1, x)
         return x, skips, shapes
 
-    def _stem_operands(self, dtype):
-        """K6's ``(w7, gamma, beta, packed)`` for inputs of ``dtype``: conv0's
-        weight as ``(7, 7, C, F)``, norm0 folded, and for bfloat16 the packed
-        weight (None for float32). Made once per fold and kept while conv0's
-        weight and norm0's parameters and buffers are the very tensors they
-        were, on the same storage, at the same version."""
-        norm = self.norm0
-        tensors = (self.conv0.weight, *norm.parameters(), *norm.buffers())
-        if (self._stem is None or self._stem[1] != dtype
-                or not _same_tensors(self._stem[0], tensors)):
-            with torch.no_grad():
-                w7 = self.conv0.weight.permute(2, 3, 1, 0).contiguous()
-                gamma, beta = fold_bn(norm.weight, norm.bias, norm.running_mean,
-                                      norm.running_var, norm.eps)
-                packed = pack_stem_weights(w7) if dtype == torch.bfloat16 else None
-            self._stem = (_fold_key(tensors), dtype, (w7, gamma, beta, packed))
-        return self._stem[2]
+    def _parts(self):
+        """The stem's conv0 and norm0: its folds read nothing of the blocks,
+        which keep their own."""
+        return self.conv0, self.norm0
+
+
+def _stem_pool_form(encoder, dtype):
+    """K6's ``(w7, gamma, beta, packed)`` for inputs of ``dtype``: conv0's
+    weight as ``(7, 7, C, F)``, norm0 folded, and for bfloat16 the packed
+    weight (None for float32)."""
+    w7 = encoder.conv0.weight.permute(2, 3, 1, 0).contiguous()
+    packed = pack_stem_weights(w7) if dtype == torch.bfloat16 else None
+    return (w7, *bn_relu_operands(encoder.norm0), packed)
 
 
 def _stem_pool_ok(spec, b: int, h: int, w: int, c: int, train: bool) -> bool:
@@ -578,53 +578,42 @@ class ConcatFuse(nn.Module):
 
     Eval with ``use_fused`` (``gpu.use_fused_kernels``) runs the fused kernel
     K1 (:func:`..ops.fused.concat_bn_relu_conv1x1`) on NHWC views of the two
-    streams, so the concat never exists, on operands kept per fold
-    (:meth:`_fuse_operands`); without it, and in train mode (batch
-    statistics), the plain cat-BN-ReLU-conv runs.
+    streams, so the concat never exists, on its operands
+    (:func:`..ops.fused.fuse_operands`: norm folded, and for bfloat16 the
+    packed conv weight); without it, and in train mode (batch statistics),
+    the plain cat-BN-ReLU-conv runs.
     """
 
     def __init__(self, num_features, *, use_fused=True):
         super().__init__()
         self.use_fused = use_fused
-        self._fuse = None                     # (key, dtype, K1's operands)
-        self._eval_ops = None                 # (key, dtype, the plain path's operands)
         self.norm = _batch_norm(2 * num_features)
         self.conv = nn.Conv2d(2 * num_features, num_features, 1, bias=False)
 
     def forward(self, a, b):
+        norm, conv = self.norm, self.conv
         if self.training or not self.use_fused:
-            n, w = _eval_operands(self, a, (self.norm, self.conv))
-            return _conv(_bn_relu(torch.cat([a, b], dim=1), self.norm, n), self.conv, w)
+            n, w = _plain_operands(self, a.dtype)
+            return _conv(_bn_relu(torch.cat([a, b], dim=1), norm, n), conv, w)
         out = concat_bn_relu_conv1x1(
             a.permute(0, 2, 3, 1).contiguous(), b.permute(0, 2, 3, 1).contiguous(),
-            scale=self.norm.weight, bias=self.norm.bias,
-            mean=self.norm.running_mean, var=self.norm.running_var,
-            weight=self.conv.weight, eps=self.norm.eps,
-            operands=self._fuse_operands(a.dtype),
+            scale=norm.weight, bias=norm.bias, mean=norm.running_mean, var=norm.running_var,
+            weight=conv.weight, eps=norm.eps,
+            operands=eval_operands(self, "fused", a.dtype, lambda: fuse_operands(
+                norm.weight, norm.bias, norm.running_mean, norm.running_var, conv.weight,
+                norm.eps, a.dtype)),
         )
         return out.permute(0, 3, 1, 2)
 
-    def _fuse_operands(self, dtype):
-        """K1's ``(gamma, beta, packed)`` for inputs of ``dtype``
-        (:func:`..ops.fused.fuse_operands`: norm folded, and for bfloat16 the
-        packed conv weight). Made once per fold and kept while the conv
-        weight and the norm's parameters and buffers are the very tensors
-        they were, on the same storage, at the same version."""
-        norm = self.norm
-        tensors = (self.conv.weight, *norm.parameters(), *norm.buffers())
-        if (self._fuse is None or self._fuse[1] != dtype
-                or not _same_tensors(self._fuse[0], tensors)):
-            with torch.no_grad():
-                operands = fuse_operands(norm.weight, norm.bias, norm.running_mean,
-                                         norm.running_var, self.conv.weight, norm.eps, dtype)
-            self._fuse = (_fold_key(tensors), dtype, operands)
-        return self._fuse[2]
+    def _parts(self):
+        return self.norm, self.conv
 
 
 class ConvTransposeToShape(nn.ConvTranspose2d):
     """Transposed conv (k=3, s=2, p=1) to a requested spatial size: the
     output padding is ``target - (2 * in - 1)`` per axis and must be 0 or 1
-    (the reference's ``output_size=`` call)."""
+    (the reference's ``output_size=`` call). It runs on its weight cast to
+    the activation dtype (:func:`eval_operands`)."""
 
     def __init__(self, in_channels, out_channels):
         super().__init__(in_channels, out_channels, 3, stride=2, padding=1,
@@ -636,7 +625,11 @@ class ConvTransposeToShape(nn.ConvTranspose2d):
             raise ValueError(
                 f"requested output size {tuple(target_hw)} unreachable from "
                 f"input {tuple(x.shape[-2:])} with stride 2 (output_padding {pad})")
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), None, 2, 1, pad)
+        (weight,) = _plain_operands(self, x.dtype)
+        return F.conv_transpose2d(x, weight, None, 2, 1, pad)
+
+    def _parts(self):
+        return (self,)
 
 
 class DecoderStage(nn.Module):
@@ -646,7 +639,6 @@ class DecoderStage(nn.Module):
 
     def __init__(self, in_channels, features):
         super().__init__()
-        self._eval_ops = None                 # (key, dtype, _eval_operands)
         self.norm0 = _batch_norm(in_channels)
         self.conv_reduce = nn.Conv2d(in_channels, features, 1, bias=False)
         self.norm1 = _batch_norm(features)
@@ -654,8 +646,11 @@ class DecoderStage(nn.Module):
     def forward(self, x, skip=None):
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
-        n0, w, n1 = _eval_operands(self, x, (self.norm0, self.conv_reduce, self.norm1))
+        n0, w, n1 = _plain_operands(self, x.dtype)
         return _bn_relu(_conv(_bn_relu(x, self.norm0, n0), self.conv_reduce, w), self.norm1, n1)
+
+    def _parts(self):
+        return self.norm0, self.conv_reduce, self.norm1
 
 
 class Decoder(nn.Module):
@@ -706,10 +701,11 @@ class Head(nn.Module):
 
     Otherwise, and in train mode, the plain head runs (JAX trains with its
     phase-space train head, ``Head._phase_head_train``, the same function:
-    not ported, ``ROADMAP.md``). The folded weights of K3 and of the eval
-    phase-space head are kept between calls and folded again when a refine
-    weight changes (replaced, moved or edited in place: :func:`_same_tensors`)
-    or the dtype does."""
+    not ported, ``ROADMAP.md``). Its eval operands (:func:`eval_operands`)
+    are the plain head's, and the norms folded beside K3's weights
+    (:func:`..ops.phase_head.kernel_weights`) or the phase-space head's
+    (:func:`..ops.phase_head.phase_space_weights`, folded in f32, cast to
+    the activation dtype)."""
 
     def __init__(self, up_channels, raw_channels, mid_features, num_classes, *,
                  use_fused=True, fused_max_pixels=1 << 62):
@@ -717,9 +713,6 @@ class Head(nn.Module):
         self.up_channels = up_channels
         self.use_fused = use_fused
         self.fused_max_pixels = fused_max_pixels
-        self._k3_weights = None               # (dtype, key, kernel_weights(...))
-        self._phase_weights = None            # (dtype, key, phase_space_weights(...))
-        self._eval_ops = None                 # (key, dtype, the plain head's operands)
         self.norm0 = _batch_norm(up_channels + raw_channels)
         self.refine0 = nn.Conv2d(up_channels + raw_channels, mid_features, 3,
                                  padding=1, bias=False)
@@ -727,50 +720,31 @@ class Head(nn.Module):
         self.refine1 = nn.Conv2d(mid_features, num_classes, 5, padding=2, bias=False)
 
     def forward(self, x_lo, raw):
+        dt = x_lo.dtype
         if not self.training and self._fused_eligible(x_lo, raw):
-            n0, n1 = self.norm0, self.norm1
-            g0, b0 = fold_bn(n0.weight, n0.bias, n0.running_mean, n0.running_var, n0.eps)
-            g1, b1 = fold_bn(n1.weight, n1.bias, n1.running_mean, n1.running_var, n1.eps)
+            w0, w1 = self.refine0.weight, self.refine1.weight
             if self._kernel_eligible(x_lo, raw):
+                g0, b0, g1, b1, *weights = eval_operands(self, "phase_head", dt, lambda: (
+                    *self._norm_folds(), *phase_head_weights(w0, w1, self.up_channels, dt)))
                 out = phase_head(x_lo.permute(0, 2, 3, 1).contiguous(),
                                  raw.permute(0, 2, 3, 1).contiguous(),
-                                 g0=g0, b0=b0, w0=self.refine0.weight,
-                                 g1=g1, b1=b1, w1=self.refine1.weight,
-                                 weights=self._kernel_weights(x_lo) if x_lo.is_cuda else None)
+                                 g0=g0, b0=b0, w0=w0, g1=g1, b1=b1, w1=w1, weights=weights)
                 return out.permute(0, 3, 1, 2)
-            w0t, w4t = self._phase_space_weights(x_lo.dtype)
+            g0, b0, g1, b1, w0t, w4t = eval_operands(self, "phase_space", dt, lambda: (
+                *self._norm_folds(),
+                *(w.to(dt) for w in phase_space_weights(w0, w1, self.up_channels))))
             return phase_space_head(x_lo, raw, g0=g0, b0=b0, g1=g1, b1=b1, w0t=w0t, w4t=w4t)
-        n0, w0, n1, w1 = _eval_operands(self, x_lo,
-                                        (self.norm0, self.refine0, self.norm1, self.refine1))
+        n0, w0, n1, w1 = _plain_operands(self, dt)
         x = torch.cat([F.interpolate(x_lo, scale_factor=2, mode="nearest"), raw], dim=1)
         x = _conv(_bn_relu(x, self.norm0, n0), self.refine0, w0)
         return _conv(_bn_relu(x, self.norm1, n1), self.refine1, w1)
 
-    def _kernel_weights(self, x_lo):
-        """K3's folded weights for ``x_lo``'s dtype, from the cache while the
-        refine weights are the very tensors they were, on the same storage, at
-        the same version."""
-        w0, w1 = self.refine0.weight, self.refine1.weight
-        cached = self._k3_weights
-        if (cached is None or cached[0] != x_lo.dtype
-                or not _same_tensors(cached[1], (w0, w1))):
-            with torch.no_grad():
-                weights = phase_head_weights(w0, w1, self.up_channels, x_lo.dtype)
-            self._k3_weights = (x_lo.dtype, _fold_key((w0, w1)), weights)
-        return self._k3_weights[2]
+    def _parts(self):
+        return self.norm0, self.refine0, self.norm1, self.refine1
 
-    def _phase_space_weights(self, dtype):
-        """The eval phase-space head's ``(w0t, w4t)`` in ``dtype``
-        (:func:`..ops.phase_head.phase_space_weights`, folded in f32), kept
-        as :meth:`_kernel_weights` keeps K3's."""
-        w0, w1 = self.refine0.weight, self.refine1.weight
-        cached = self._phase_weights
-        if cached is None or cached[0] != dtype or not _same_tensors(cached[1], (w0, w1)):
-            with torch.no_grad():
-                weights = tuple(w.to(dtype) for w in
-                                phase_space_weights(w0, w1, self.up_channels))
-            self._phase_weights = (dtype, _fold_key((w0, w1)), weights)
-        return self._phase_weights[2]
+    def _norm_folds(self):
+        """``(g0, b0, g1, b1)``: norm0 and norm1 folded in f32."""
+        return (*bn_relu_operands(self.norm0), *bn_relu_operands(self.norm1))
 
     def _fused_eligible(self, x_lo, raw) -> bool:
         """JAX's ``Head._fused_eligible``: ``use_fused``, the raw plane twice

@@ -21,9 +21,11 @@ memory, as the model holds every activation, in float32 or bfloat16, and
 returns ``out`` in the same layout and dtype.
 
 Counters: :data:`BN_RELU_LAUNCHES` (kernel launches) and :data:`BN_FOLDS`
-(folds the model made of a module's eval operands,
-``models/dense_unet_lidar.py``): one forward on a warm cache adds the number
-of BN-ReLU sites on the plain path to the first and nothing to the second.
+(every fold the model's one cache of eval operands makes, in any form: the
+plain path's, the kernels' and the phase-space head's,
+``models/dense_unet_lidar.py`` ``eval_operands``): one forward on a warm
+cache adds the number of BN-ReLU sites on the plain path to the first and
+nothing to the second.
 """
 
 from __future__ import annotations

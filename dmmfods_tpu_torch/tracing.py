@@ -26,8 +26,9 @@ allocates nothing. The records stay in memory, at most ``MAX_SPANS`` of
 them; past that the recorder drops and counts (:func:`dropped`).
 
 The port's counters are :class:`LaunchCount`\\ s (each kernel's launches,
-``ops.<module>.K?_LAUNCHES`` and ``ops.bn_relu.BN_RELU_LAUNCHES``; the eval
-folds the model makes, ``ops.bn_relu.BN_FOLDS``) and
+``ops.<module>.K?_LAUNCHES`` and ``ops.bn_relu.BN_RELU_LAUNCHES``; every
+fold the model's eval-operand cache makes, in any form,
+``ops.bn_relu.BN_FOLDS``) and
 ``serving.InferenceEngine.stats()``.
 
 The spans the port records (``README.md`` says what each covers):

@@ -1,5 +1,5 @@
 """The eval BN-ReLU pass of the port (``dmmfods_tpu_torch/ops/bn_relu.py``)
-and the model's eval operands kept per fold (``_eval_operands`` in
+and the model's eval operands kept per fold (``eval_operands`` in
 ``models/dense_unet_lidar.py``).
 
 On the CPU: the plain version against the model's per-call fold (bit for bit
@@ -57,7 +57,8 @@ def test_plain_version_is_the_per_call_fold_in_f32(shape, channels_last):
     beta = norm.bias - norm.running_mean * gamma
     want = torch.relu(x * gamma[:, None, None] + beta[:, None, None])
     torch.testing.assert_close(got, want, atol=0, rtol=0)
-    torch.testing.assert_close(pm._bn_relu(x, norm).detach(), want, atol=0, rtol=0)
+    torch.testing.assert_close(pm._bn_relu(x, norm, br.bn_relu_operands(norm)).detach(), want,
+                               atol=0, rtol=0)
     assert got.is_contiguous(memory_format=torch.channels_last) == channels_last
 
 
@@ -152,6 +153,18 @@ def _kept(model, *inputs):
         return model(*inputs)
 
 
+# the forms the tiny model keeps, one fold each: the plain forms of 2 stems,
+# 5 plain blocks, 4 transitions, 4 decoder stages and 4 transposed convs, and
+# the fuse's and the head's (K1 and phase space, or both plain)
+FORMS = 21
+
+
+def _entries(model):
+    """Every kept entry of ``model``, by module name, form and dtype."""
+    return {(name, *key): entry for name, m in model.named_modules()
+            for key, entry in vars(m).get("_operands", {}).items()}
+
+
 def _site_shapes(spec, batch, h, w, kernel_blocks=()):
     """``(B, C, H, W)`` of every BN-ReLU site of the plain path, in the
     order an eval forward meets them, from the architecture alone:
@@ -235,15 +248,12 @@ def test_kept_operands_equal_the_per_call_fold(use_fused):
     folds = br.BN_FOLDS.value
     first = _kept(model, rgb, lidar)
     made = br.BN_FOLDS.value - folds
-    kept = {name: m._eval_ops for name, m in model.named_modules()
-            if getattr(m, "_eval_ops", None) is not None}
-    # one fold for each module that holds a site: 2 stems, 5 plain blocks, 4
-    # transitions, 4 decoder stages; without the fused kernels the fuse and
-    # the head too
-    assert made == len(kept) == 15 + 2 * (not use_fused)
+    kept = _entries(model)
+    assert made == len(kept) == FORMS
     second = _kept(model, rgb, lidar)
     assert br.BN_FOLDS.value - folds == made
-    assert all(m._eval_ops is kept[name] for name, m in model.named_modules() if name in kept)
+    again = _entries(model)
+    assert again.keys() == kept.keys() and all(again[k] is kept[k] for k in kept)
     torch.testing.assert_close(first, want, atol=0, rtol=0)
     torch.testing.assert_close(second, want, atol=0, rtol=0)
 
@@ -267,7 +277,7 @@ def _edit(model, change):
         elif change == "to_dtype":
             # a cast there and back: new storage, the values rounded to bf16
             model.to(BF16).to(torch.float32)
-    return 1 if change not in ("load_state_dict", "to_dtype") else 15
+    return 1 if change not in ("load_state_dict", "to_dtype") else FORMS
 
 
 @pytest.mark.parametrize("change", ["running_var", "bn_weight", "conv_weight", "replaced",
@@ -299,10 +309,10 @@ def test_a_new_activation_dtype_folds_anew():
     folds = br.BN_FOLDS.value
     with torch.no_grad():
         want = tr(x)
-        (scale, _), w = tr._eval_ops[2]
+        (scale, _), w = tr._operands["plain", torch.float32][1]
         assert w.dtype == torch.float32 and scale.dtype == torch.float32
         got = tr(x.to(BF16))
-        (scale, _), w = tr._eval_ops[2]
+        (scale, _), w = tr._operands["plain", BF16][1]
         assert w.dtype == BF16 and scale.dtype == torch.float32
         tr(x.to(BF16))
     assert br.BN_FOLDS.value - folds == 2
@@ -329,8 +339,9 @@ def test_train_mode_updates_the_running_stats():
 
 
 def test_eval_forward_with_gradients_runs_the_per_call_fold():
-    """With autograd on, the eval forward folds per call and nothing is kept,
-    so gradients reach the BN parameters and the conv weights."""
+    """With autograd on, the eval forward makes its operands per call and no
+    module keeps anything in any form, so gradients reach the BN parameters
+    and the conv weights, the phase-space head's refine weights included."""
     model = _tiny_model()
     rgb, lidar = _inputs()
     folds = br.BN_FOLDS.value
@@ -338,7 +349,9 @@ def test_eval_forward_with_gradients_runs_the_per_call_fold():
     assert br.BN_FOLDS.value == folds
     layer = model.features.denseblock3.denselayer1
     assert layer.norm1.weight.grad is not None and layer.conv2.weight.grad is not None
-    assert all(getattr(m, "_eval_ops", None) is None for m in model.modules())
+    head = model.dec_out_to_heat_maps
+    assert head.refine0.weight.grad is not None and head.norm1.weight.grad is not None
+    assert _entries(model) == {}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,12 +3,11 @@
 carry kernel (``dense_block_strip_carry`` in interpret mode, the same code
 path the TPU runs), the bf16 kernel's weight layout (``pack_layer_weights``)
 against the fold and its wave plan, the eval ``DenseBlock``'s dispatch
-against its plain loop, its cache of the folded stacks and packed weights
-(and the eval ``Head``'s of its folded weights) across replaced tensors, the wrapper's
-argument checks, and that a CPU tensor takes the plain version. All in f32;
-the BN vectors are randomised so that some folded BN2 bias is positive and a
-border bug shows (see
-``tests/test_pallas_dense_block_strip.py``). Tolerance: atol 5e-4, the JAX
+against its plain loop, the wrapper's argument checks, and that a CPU tensor
+takes the plain version (the block's kept operands:
+``tests/test_torch_eval_operands.py``). All in f32; the BN vectors are
+randomised so that some folded BN2 bias is positive and a border bug shows
+(see ``tests/test_pallas_dense_block_strip.py``). Tolerance: atol 5e-4, the JAX
 kernel test's own, for f32 summation-order noise over up to six layers.
 The kernel itself runs only on the card: ``test_kernel_matches_plain_on_cuda``
 skips without one, and ``chip_smoke.py`` checks it at the full-resolution
@@ -28,7 +27,6 @@ from dmmfods_tpu.ops.pallas.dense_block import fold_block_params as jax_fold
 from dmmfods_tpu.ops.pallas.dense_block_strip import dense_block_strip_carry
 from dmmfods_tpu_torch.models import dense_unet_lidar as pm
 from dmmfods_tpu_torch.ops import dense_block_strip as k2
-from dmmfods_tpu_torch.ops import phase_head as k3
 from dmmfods_tpu_torch.ops.dense_block import fold_block_params
 
 ATOL = 5e-4
@@ -189,100 +187,6 @@ def test_eval_block_dispatch_matches_plain_loop(monkeypatch):
     want_ragged = np.asarray(jax_ragged.apply(ragged_vars, jnp.asarray(x_ragged), False))
     np.testing.assert_allclose(got_ragged.permute(0, 2, 3, 1).numpy(), want_ragged,
                                atol=ATOL)
-
-
-def test_eval_block_keeps_its_folded_stacks():
-    """The eval block folds its stacks once and again only when one of its
-    parameters or buffers changes (in place or replaced)."""
-    _, variables, _ = _jax_block(3, 16, 8, 4, 4, seed=12)
-    block = _port_block(variables, 3, 16, 8)
-    first = block._kernel_operands()[0]
-    assert block._kernel_operands()[0] is first
-    for name, value in fold_block_params(block).items():
-        torch.testing.assert_close(first[name], value, atol=0, rtol=0, msg=name)
-    with torch.no_grad():
-        block.denselayer2.norm1.running_var.mul_(4)
-    second = block._kernel_operands()[0]
-    assert not torch.equal(second["g1"], first["g1"])
-    block.denselayer3.conv2.weight = torch.nn.Parameter(
-        block.denselayer3.conv2.weight.detach() * 3)
-    third = block._kernel_operands()[0]
-    assert not torch.equal(third["w3"], second["w3"])
-    for name, value in fold_block_params(block).items():
-        torch.testing.assert_close(third[name], value, atol=0, rtol=0, msg=name)
-
-
-def _refill(arrays, rng):
-    """New random values in each numpy array, in place (BN vectors positive,
-    so a variance stays one)."""
-    for a in arrays.values():
-        if a.dtype == np.float32:
-            a[...] = (rng.uniform(0.5, 1.5, a.shape) if a.ndim == 1
-                      else rng.normal(0, 0.2, a.shape))
-
-
-@pytest.mark.parametrize("module", ["block", "head"])
-def test_fold_caches_follow_assigned_state_dicts(module):
-    """``load_state_dict(..., assign=True)`` twice, with other weights each
-    time: the eval block's and head's caches fold again after each swap, and
-    their folds equal the new weights' bit for bit. The second state dict's
-    tensors are new tensors on the first's memory (its numpy arrays refilled
-    and wrapped anew, at version 0): what a new tensor at a freed address
-    looks like to a cache keyed on addresses and versions alone."""
-    rng = np.random.default_rng(13)
-    if module == "block":
-        _, variables, _ = _jax_block(3, 16, 8, 4, 4, seed=13)
-        mod = _port_block(variables, 3, 16, 8)
-
-        def fold():
-            return list(mod._kernel_operands()[0].values())
-
-        def want():
-            return list(fold_block_params(mod).values())
-    else:
-        mod = pm.Head(12, 4, 8, 3).eval()
-        x = torch.zeros(1, 12, 6, 9)
-
-        def fold():
-            return list(mod._kernel_weights(x))
-
-        def want():
-            return list(k3.kernel_weights(mod.refine0.weight, mod.refine1.weight, 12,
-                                          torch.float32))
-    arrays = {name: t.numpy().copy() for name, t in mod.state_dict().items()}
-    before = fold()
-    for _ in range(2):
-        _refill(arrays, rng)
-        mod.load_state_dict({name: torch.from_numpy(a) for name, a in arrays.items()},
-                            assign=True)
-        got = fold()
-        assert not all(torch.equal(g, b) for g, b in zip(got, before))
-        for g, w in zip(got, want()):
-            torch.testing.assert_close(g, w, atol=0, rtol=0)
-        before = got
-
-
-def test_cached_packed_pair_unpacks_to_the_fold():
-    """The eval block keeps the bf16 kernels' packed w1 and w3 beside its
-    folded stacks, made once per fold: they unpack to the fold rounded to
-    bf16, and a change of a weight makes them anew with the fold."""
-    L, c0, growth = 3, 16, 8
-    _, variables, _ = _jax_block(L, c0, growth, 4, 4, seed=14)
-    block = _port_block(variables, L, c0, growth)
-    folded, packed = block._kernel_operands()
-    assert block._kernel_operands()[1] is packed
-    for _ in range(2):
-        w1, w3 = _unpack_layer_weights(*packed, c0 + L * growth, 4 * growth, growth)
-        for name, got in (("w1", w1), ("w3", w3)):
-            torch.testing.assert_close(got, folded[name].to(torch.bfloat16).float(),
-                                       atol=0, rtol=0, msg=name)
-        for got, want in zip(packed, k2.pack_layer_weights(folded)):
-            torch.testing.assert_close(got, want, atol=0, rtol=0)
-        with torch.no_grad():
-            block.denselayer1.conv1.weight.mul_(-2)
-        folded, packed_after = block._kernel_operands()
-        assert packed_after is not packed
-        packed = packed_after
 
 
 def _folded(rng, L=2, c0=6, growth=4, k=16):

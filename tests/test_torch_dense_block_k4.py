@@ -308,7 +308,7 @@ def test_eval_block_passes_its_packed_pair(monkeypatch):
     with torch.no_grad():
         block(x)
         block(x)
-    folded, packed = block._kernel_operands()
+    folded, packed = block._operands["kernels", torch.float32][1]
     assert len(seen) == 2 and all(args[1] is folded and args[2] is packed for args in seen)
     x_nhwc = x.permute(0, 2, 3, 1).contiguous()
     before = k4.K4_LAUNCHES.value

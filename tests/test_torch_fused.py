@@ -4,10 +4,11 @@
 argument checks, and that a CPU tensor takes the plain version. The bf16
 kernel's operands are checked here: ``pack_fuse_weights``' layout, the
 kernel's GEMM form (K padded per stream, the normalized operands, the
-unpacked weight) against the plain version, the eval ``ConcatFuse``'s
-per-fold cache of them, and the wrapper's checks of ``operands``. The kernel
-itself runs only on the card: ``test_kernel_matches_plain_on_cuda`` skips
-without one, and ``chip_smoke.py`` checks it at the serving shapes."""
+unpacked weight) against the plain version, and the wrapper's checks of
+``operands`` (the eval ``ConcatFuse``'s kept operands:
+``tests/test_torch_eval_operands.py``). The kernel itself runs only on
+the card: ``test_kernel_matches_plain_on_cuda`` skips without one, and
+``chip_smoke.py`` checks it at the serving shapes."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,6 @@ import torch
 import jax.numpy as jnp
 
 from dmmfods_tpu.ops import fused as jax_fused
-from dmmfods_tpu_torch.models import dense_unet_lidar as pm
 from dmmfods_tpu_torch.ops import fused
 
 BF16 = torch.bfloat16
@@ -221,64 +221,6 @@ def test_gemm_form_matches_plain(shape):
     # GEMM form once: chip_smoke.py's bf16 bound
     want16 = fused.concat_bn_relu_conv1x1_reference(a16, b16, **kw).float()
     assert (got16 - want16).abs().max() <= 1e-2 * want16.abs().max()
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, BF16])
-def test_concat_fuse_keeps_operands_per_fold(monkeypatch, dtype):
-    """K1's operands are folded once: two eval forwards pass the very same
-    gamma, beta (and, in bf16, packed weight); an assigned state dict
-    (twice) and an in-place edit of the norm's running variance each fold
-    anew; a train-mode forward leaves the cache alone. In f32 the output is
-    the plain cat-BN-ReLU-conv."""
-    fuse = pm.ConcatFuse(16).eval()
-    calls = []
-
-    def spy(*args, **kwargs):
-        calls.append(kwargs["operands"])
-        return fused.concat_bn_relu_conv1x1(*args, **kwargs)
-
-    monkeypatch.setattr(pm, "concat_bn_relu_conv1x1", spy)
-    gen = torch.Generator().manual_seed(5)
-    a = torch.randn(2, 16, 4, 6, generator=gen).to(dtype)
-    b = torch.randn(2, 16, 4, 6, generator=gen).to(dtype)
-
-    def forward():
-        with torch.no_grad():
-            got = fuse(a, b)
-            if dtype == torch.float32:
-                want = pm._conv(pm._bn_relu(torch.cat([a, b], dim=1), fuse.norm), fuse.conv)
-                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-        return calls[-1]
-
-    first = forward()
-    assert all(x is y for x, y in zip(forward(), first))
-    assert (first[2] is None) == (dtype == torch.float32)
-    if dtype == BF16:
-        assert first[2].dtype == BF16 and first[2].shape == fused.packed_shape(32, 16)
-    seen = [first]
-    rng = np.random.default_rng(6)
-    for _ in range(2):
-        state = {k: (torch.from_numpy(rng.uniform(0.5, 1.5, tuple(v.shape)).astype(np.float32))
-                     if v.is_floating_point() else v.clone())
-                 for k, v in fuse.state_dict().items()}
-        fuse.load_state_dict(state, assign=True)
-        seen.append(forward())
-    with torch.no_grad():
-        fuse.norm.running_var.mul_(2)
-    seen.append(forward())
-    for i, ops in enumerate(seen):
-        for other in seen[:i]:
-            assert all(x is not y for x, y in zip(ops[:2], other[:2]))
-            if dtype == BF16:
-                assert ops[2] is not other[2]
-    kept = fuse._fuse
-    with torch.no_grad():
-        fuse.train()(a.float(), b.float())
-    assert fuse._fuse is kept and len(calls) == len(seen) + 1
-    fuse.eval()
-    refolded = forward()            # train mode's batch stats moved the running stats
-    assert refolded[0] is not seen[-1][0]
-    assert all(x is y for x, y in zip(forward(), refolded))
 
 
 @pytest.mark.parametrize("case,error", [

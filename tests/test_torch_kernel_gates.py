@@ -157,7 +157,7 @@ def test_growth48_eval_block_runs_the_plain_loop(monkeypatch, path):
     assert calls == ["dense_block" if path == "k4" else "dense_block_strip"]
     assert got.shape == (1, c0 + layers * growth, h, w)
     torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
-    w1p, w3p = block._kernel_operands()[1]
+    w1p, w3p = block._operands["kernels", x.dtype][1][1]
     assert tuple(w1p.shape) == (layers, 128, 192) and tuple(w3p.shape) == (layers, 9, 192, 48)
 
 

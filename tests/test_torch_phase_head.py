@@ -5,13 +5,13 @@ the kernel's phase-space refine0 weights (``fold_phase_head_weights``)
 against JAX's, the bf16 kernel's weight layout (``pack_phase_head_weights``)
 against the fold in both of its layouts (DenseNet-121's narrow one and the
 wide one of DenseNet-161's c_mid 96 and source 208), the eval ``Head``'s
-dispatch against its plain form and its cache of the folded weights, the
-wrapper's argument checks, and that a CPU tensor takes the plain version.
-All in f32 at batch 1; tolerance atol 2e-4, the JAX head test's own (the JAX
-side sums its collapsed phase-space weights in another order). The kernel itself runs
-only on the card: ``test_kernel_matches_plain_on_cuda`` skips without one,
-and ``chip_smoke.py`` checks it at DenseNet-121's and DenseNet-161's
-1280x1920 heads."""
+dispatch against its plain form, the wrapper's argument checks, and that a
+CPU tensor takes the plain version. All in f32 at batch 1; tolerance atol
+2e-4, the JAX head test's own (the JAX side sums its collapsed phase-space
+weights in another order). The kernel itself runs only on the card:
+``test_kernel_matches_plain_on_cuda`` skips without one, and
+``chip_smoke.py`` checks it at DenseNet-121's and DenseNet-161's 1280x1920
+heads (the ``Head``'s kept operands: ``tests/test_torch_eval_operands.py``)."""
 
 import numpy as np
 import pytest
@@ -158,27 +158,6 @@ def test_kernel_weights_per_dtype():
         k3.fold_phase_head_weights(w0.to(torch.bfloat16), 32), w1.to(torch.bfloat16))
     torch.testing.assert_close(b0, want0, atol=0, rtol=0)
     torch.testing.assert_close(b1, want1, atol=0, rtol=0)
-
-
-def test_eval_head_keeps_its_folded_weights():
-    """The eval Head folds K3's weights once and again only when a refine
-    weight changes (in place or replaced) or the dtype does."""
-    head = pm.Head(12, 4, 8, 3).eval()
-    x = torch.zeros(1, 12, 6, 9)
-    first = head._kernel_weights(x)
-    assert head._kernel_weights(x) is first
-    want = k3.kernel_weights(head.refine0.weight, head.refine1.weight, 12, torch.float32)
-    for got, ref in zip(first, want):
-        torch.testing.assert_close(got, ref, atol=0, rtol=0)
-    with torch.no_grad():
-        head.refine0.weight.mul_(2)
-    second = head._kernel_weights(x)
-    assert second is not first
-    torch.testing.assert_close(second[0], 2 * first[0], atol=0, rtol=0)
-    head.refine1.weight = torch.nn.Parameter(head.refine1.weight.detach() + 1)
-    third = head._kernel_weights(x)
-    torch.testing.assert_close(third[1], second[1] + 1, atol=0, rtol=0)
-    assert head._kernel_weights(x.to(torch.bfloat16))[0].dtype == torch.bfloat16
 
 
 def test_eval_head_dispatch_matches_plain_form(monkeypatch):

@@ -10,7 +10,7 @@
   ``phase_head_conv0``.
 * The eval ``Head`` against ``jm.Head(use_fused=True)`` at batch 2 and at
   batch 1 below ``HEAD_KERNEL_MIN_PIXELS``, with ``F.interpolate`` spied on:
-  the upsample never runs. Its kept weights follow the refine weights.
+  the upsample never runs.
 * The train ``Head`` (the plain head) against JAX's ``_phase_head_train``:
   the logits, the gradients with respect to ``x_lo``, ``raw`` and the four
   modules' parameters as one vector (2e-3, as the train step's), and the
@@ -174,26 +174,6 @@ def test_eval_head_matches_jax_fused_head(monkeypatch, b, hh, hw):
     assert calls == []
     assert 4 * hh * hw <= pm.HEAD_KERNEL_MIN_PIXELS
     np.testing.assert_allclose(got, want, **TOL)
-
-
-def test_eval_head_keeps_its_phase_space_weights():
-    """The eval Head folds the phase-space weights once per dtype and again
-    only when a refine weight changes (in place or replaced)."""
-    head = pm.Head(12, 4, 8, 3).eval()
-    first = head._phase_space_weights(torch.float32)
-    assert head._phase_space_weights(torch.float32) is first
-    want = k3.phase_space_weights(head.refine0.weight, head.refine1.weight, 12)
-    for got, ref in zip(first, want):
-        torch.testing.assert_close(got, ref, atol=0, rtol=0)
-    with torch.no_grad():
-        head.refine0.weight.mul_(2)
-    second = head._phase_space_weights(torch.float32)
-    assert second is not first
-    torch.testing.assert_close(second[0], 2 * first[0], atol=0, rtol=0)
-    head.refine1.weight = torch.nn.Parameter(head.refine1.weight.detach() * 3)
-    third = head._phase_space_weights(torch.float32)
-    torch.testing.assert_close(third[1], 3 * second[1], atol=0, rtol=0)
-    assert head._phase_space_weights(torch.bfloat16)[0].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("b,hh,hw", [(2, 6, 9), (1, 8, 12)])

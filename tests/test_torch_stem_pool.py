@@ -11,10 +11,10 @@ the JAX kernel test's own, for f32 summation-order noise over 49*C taps.
 The bf16 kernel's operands are checked here: ``pack_stem_weights``' layout
 at the model's and the kernel's largest channel counts, the kernel's GEMM
 form (an im2col against the packed weight, in f32) against the plain
-version, the ``Encoder``'s per-fold cache of them, and the wrapper's checks
-of a packed weight. The kernel itself runs only on the card:
-``test_kernel_matches_plain_on_cuda`` skips without one, and
-``chip_smoke.py`` checks it at 1280x1920 and 128x192."""
+version, and the wrapper's checks of a packed weight (the ``Encoder``'s kept
+operands: ``tests/test_torch_eval_operands.py``). The kernel itself runs
+only on the card: ``test_kernel_matches_plain_on_cuda`` skips without one,
+and ``chip_smoke.py`` checks it at 1280x1920 and 128x192."""
 
 import dataclasses
 
@@ -85,8 +85,9 @@ def test_plain_version_matches_the_unfused_stem(batch, h, w, c):
                           (norm.running_mean, -0.5, 0.5), (norm.running_var, 0.5, 1.5)):
             t.copy_(torch.from_numpy(rng.uniform(lo, hi, 12).astype(np.float32)))
         x = torch.from_numpy(rng.normal(size=(batch, c, h, w)).astype(np.float32))
+        weight, folded = pm._plain_form((encoder.conv0, norm), x.dtype)
         want = torch.nn.functional.max_pool2d(
-            pm._bn_relu(pm._conv(x, encoder.conv0), norm), 3, 2, 1)
+            pm._bn_relu(pm._conv(x, encoder.conv0, weight), norm, folded), 3, 2, 1)
         gamma, beta = fold_bn(norm.weight, norm.bias, norm.running_mean,
                               norm.running_var, norm.eps)
         got = k6.stem_pool_reference(x.permute(0, 2, 3, 1).contiguous(),
@@ -294,58 +295,6 @@ def test_gemm_form_matches_plain(batch, c, f, h, w):
     want = k6.stem_pool_reference(x, w7, gamma, beta)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, **TOL)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_encoder_keeps_stem_operands_per_fold(monkeypatch, dtype):
-    """K6's operands are folded once: two forwards pass the very same gamma,
-    beta (and, in bf16, packed weight); an assigned state dict (twice) and
-    an in-place edit of norm0's running variance each fold anew. In f32 the
-    output stays the unfused encoder's."""
-    spec = pm.ModelSpec(growth_rate=8, block_config=(2, 2), num_init_features=16,
-                        stem_pool_strip="on", dtype=dtype)
-    encoder = pm.Encoder(spec, 3).eval()
-    unfused = pm.Encoder(dataclasses.replace(spec, stem_pool_strip="auto"), 3).eval()
-    calls = []
-
-    def spy(*args):
-        calls.append(args[2:])
-        return k6.stem_pool(*args)
-
-    monkeypatch.setattr(pm, "stem_pool", spy)
-    x = torch.rand(1, 3, 64, 128, generator=torch.Generator().manual_seed(1)).to(dtype)
-
-    def forward():
-        unfused.load_state_dict(encoder.state_dict())
-        with torch.no_grad():
-            got, want = encoder(x)[0], unfused(x)[0]
-        if dtype == torch.float32:
-            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-        return calls[-1]
-
-    first = forward()
-    assert all(a is b for a, b in zip(forward(), first))
-    assert (first[2] is None) == (dtype == torch.float32)
-    if dtype == torch.bfloat16:
-        assert first[2].dtype == torch.bfloat16
-        assert first[2].shape == k6.packed_shape(3, 16)
-    seen = [first]
-    rng = np.random.default_rng(2)
-    for _ in range(2):
-        state = {k: (torch.from_numpy(rng.uniform(0.5, 1.5, tuple(v.shape)).astype(np.float32))
-                     if v.is_floating_point() else v.clone())
-                 for k, v in encoder.state_dict().items()}
-        encoder.load_state_dict(state, assign=True)
-        seen.append(forward())
-    with torch.no_grad():
-        encoder.norm0.running_var.mul_(2)
-    seen.append(forward())
-    for i, ops in enumerate(seen):
-        for other in seen[:i]:
-            assert all(a is not b for a, b in zip(ops[:2], other[:2]))
-            if dtype == torch.bfloat16:
-                assert ops[2] is not other[2]
-    assert all(a is b for a, b in zip(forward(), seen[-1]))
 
 
 @pytest.mark.parametrize("case,error", [

@@ -382,7 +382,7 @@ def test_eval_after_training_equals_a_fresh_model(tmp_path, monkeypatch, dtype):
     assert torch.equal(after, trainer.make_forward(fresh, pcfg)(rgb[:1], lidar[:1]))
     assert not torch.equal(before, after)
     norm, conv = module.concat_module.norm, module.concat_module.conv
-    kept = module.concat_module._fuse_operands(getattr(torch, dtype))
+    kept = module.concat_module._operands["fused", getattr(torch, dtype)][1]
     folded = fuse_operands(norm.weight, norm.bias, norm.running_mean, norm.running_var,
                            conv.weight, norm.eps, getattr(torch, dtype))
     for a, b in zip(kept, folded):
